@@ -12,7 +12,8 @@ setup(
     version="0.1.0",
     description=("TPU-native Transfer-Learning Library for Object "
                  "Detection (JAX/XLA/Pallas)"),
-    packages=find_packages(include=["tllod_tpu", "tllod_tpu.*"]),
+    packages=find_packages(include=["tllod_tpu", "tllod_tpu.*",
+                                    "tllod_torch", "tllod_torch.*"]),
     ext_modules=[
         Extension(
             "tllod_tpu.native._native",
