@@ -156,10 +156,9 @@ def test_model_without_card_or_cpu_request_raises(monkeypatch):
 
 
 def test_unported_paths_raise(rng):
-    _, cfg_t = configs(["POOLING_MODE", "crop"])
-    model = FasterRCNN(9, cfg_t, net="vgg16_thin", device="cpu")
     feat = torch.zeros(1, 4, 6, 128)
-    with pytest.raises(NotImplementedError):
-        model.roi_features(feat, torch.zeros(1, 5))
-    with pytest.raises(NotImplementedError):
-        model.forward_pre_head(feat, torch.ones(1, 3), training=True)
+    for mode in ("crop", "pool"):
+        _, cfg_t = configs(["POOLING_MODE", mode])
+        model = FasterRCNN(9, cfg_t, net="vgg16_thin", device="cpu")
+        with pytest.raises(NotImplementedError):
+            model.roi_features(feat, torch.zeros(1, 5))

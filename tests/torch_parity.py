@@ -30,15 +30,17 @@ def random_params(model, rng, *init_args, **init_kw):
     """Random flax params for ``model`` without running its init: shapes
     from ``jax.eval_shape``; He-normal backbone and fc6/fc7 kernels, the
     reference's normal(0, 0.01) RPN and ``cls_score`` and normal(0, 0.001)
-    ``bbox_pred`` (``faster_rcnn.py:129-131``); small random biases."""
+    ``bbox_pred`` (``faster_rcnn.py:129-131``), also under a method's
+    ``detector`` subtree; small random biases."""
     shapes = jax.eval_shape(lambda: model.init(
-        {"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1)},
+        {"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1),
+         "dropout": jax.random.PRNGKey(2)},
         *init_args, **init_kw))["params"]
 
     def leaf(path, s):
         if len(s.shape) == 1:
             return (rng.randn(*s.shape) * 0.01).astype(np.float32)
-        name = jax.tree_util.keystr(path)
+        name = jax.tree_util.keystr(path).removeprefix("['detector']")
         if name.startswith("['bbox_pred']"):
             std = 0.001
         elif name.startswith(("['rpn']", "['cls_score']")):

@@ -1,19 +1,147 @@
-"""Shared entry-point machinery of the port's CLIs (the test-side part of
-``methods/common.py:107-143, 263``): the reference's flag surface, the
-dataset aliases and config resolution, defaults → ``cfgs/<net>.yml`` →
-dataset ``set_cfgs`` → ``--set`` overrides. Reading a ``cfgs/*.yml`` file
-needs ``yaml``."""
+"""Shared entry-point machinery of the port's CLIs (``methods/common.py:
+27-373``): the reference's flag surface, the dataset aliases, config
+resolution (defaults → ``cfgs/<net>.yml`` → dataset ``set_cfgs`` → ``--set``
+overrides) and the train loss logger. Reading a ``cfgs/*.yml`` file needs
+``yaml``."""
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
-from typing import Dict
+import time
+from typing import Dict, Optional
+
+import torch
 
 from tllod_torch.config import Config, cfg_from_file, cfg_from_list
 
 REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
                                          ".."))
+
+
+def build_train_parser(description: str) -> argparse.ArgumentParser:
+    """The reference train scripts' flags (``methods/DAF/DAF_train.py:
+    44-132``, as ``methods/common.py:27``), plus ``--device`` and
+    ``--cfg``. Flags of features not ported yet are accepted and raise in
+    :func:`check_train_args`."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--dataset", default="cityscape", type=str)
+    p.add_argument("--net", default="vgg16", type=str,
+                   help="vgg16 (vgg16_thin: the width-0.25 test variant)")
+    p.add_argument("--cfg", dest="cfg_file", default=None, type=str,
+                   help="config file (default cfgs/<net>.yml)")
+    p.add_argument("--start_epoch", default=1, type=int)
+    p.add_argument("--epochs", dest="max_epochs", default=10, type=int)
+    p.add_argument("--disp_interval", default=100, type=int)
+    p.add_argument("--checkpoint_interval", default=10000, type=int)
+    p.add_argument("--save_epoch_interval", default=1, type=int,
+                   help="save a checkpoint every N epochs (always saves the "
+                        "final one)")
+    p.add_argument("--save_dir", default="./output/model_weight", type=str)
+    p.add_argument("--nw", dest="num_workers", default=0, type=int)
+    p.add_argument("--cuda", action="store_true",
+                   help="accepted for script parity; the card is the default")
+    p.add_argument("--tpu", action="store_true",
+                   help="accepted for script parity; ignored")
+    p.add_argument("--device", default=None, type=str,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch versions of the kernels)")
+    p.add_argument("--ls", dest="large_scale", action="store_true")
+    p.add_argument("--mGPUs", dest="m_chips", action="store_true",
+                   help="multi-GPU: not ported yet (raises)")
+    p.add_argument("--tp", default=1, type=int,
+                   help="tensor parallelism: not ported yet (raises if > 1)")
+    p.add_argument("--bs", dest="batch_size", default=1, type=int)
+    p.add_argument("--sp", action="store_true",
+                   help="spatial partitioning: not ported yet (raises)")
+    p.add_argument("--cag", dest="class_agnostic", action="store_true")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute: not ported yet (raises)")
+    p.add_argument("--bf16_momentum", action="store_true",
+                   help="bfloat16 momentum: not ported yet (raises)")
+    p.add_argument("--fuse_steps", default=1, type=int,
+                   help="fused steps: not ported yet (raises if > 1)")
+    p.add_argument("--Mission", default="unnamed", type=str,
+                   help="run name, accepted for script compatibility")
+    p.add_argument("--o", dest="optimizer", default="sgd", type=str,
+                   help="sgd (adam is not ported yet and raises)")
+    p.add_argument("--lr", default=0.002, type=float)
+    p.add_argument("--lr_decay_step", default=6, type=int)
+    p.add_argument("--lr_decay_gamma", default=0.1, type=float)
+    p.add_argument("--lamda", default=0.1, type=float)
+    p.add_argument("--s", dest="session", default=1, type=int)
+    p.add_argument("--r", dest="resume", default=False, type=bool)
+    p.add_argument("--checksession", default=1, type=int)
+    p.add_argument("--checkepoch", default=1, type=int)
+    p.add_argument("--checkpoint", default=0, type=int)
+    p.add_argument("--use_tfb", dest="use_tfboard", action="store_true",
+                   help="write per-interval scalar metrics to a JSONL file")
+    p.add_argument("--profile", default=0, type=int,
+                   help="profiler traces: not ported yet (raises if > 0)")
+    p.add_argument("--max_steps", default=0, type=int,
+                   help="optional hard step cap (0 = full epochs)")
+    p.add_argument("--set", dest="set_cfgs", nargs="*", default=None,
+                   help="extra KEY VALUE config overrides")
+    return p
+
+
+def check_train_args(args) -> None:
+    """Raise for flags whose features are not ported yet."""
+    unported = [flag for flag, on in (
+        ("--mGPUs", args.m_chips), ("--tp", args.tp > 1), ("--sp", args.sp),
+        ("--bf16", args.bf16), ("--fuse_steps", args.fuse_steps > 1),
+        ("--profile", args.profile > 0)) if on]
+    if unported:
+        raise NotImplementedError(f"{', '.join(unported)}: not ported yet")
+
+
+class MetricLogger:
+    """disp_interval loss printing (reference ``DAF_train.py:410-446``),
+    optionally mirrored to a JSONL file. The step's metrics stay on the
+    device: each step adds them into a running-sum vector there, and the
+    one copy to the host happens when the interval prints."""
+
+    def __init__(self, interval: int, jsonl_path: Optional[str] = None):
+        self.interval = max(1, interval)
+        self.t0 = time.time()
+        self.keys = None
+        self.acc: Optional[torch.Tensor] = None
+        self.n = 0
+        self.jsonl = open(jsonl_path, "a") if jsonl_path else None
+
+    def update(self, step: int, epoch: int, lr: float,
+               metrics: Dict[str, torch.Tensor]) -> None:
+        if self.keys != sorted(metrics):
+            self.keys = sorted(metrics)
+            self.acc, self.n = None, 0
+        vec = torch.stack([metrics[k].float() for k in self.keys])
+        self.acc = vec if self.acc is None else self.acc + vec
+        self.n += 1
+        if step % self.interval == 0:
+            self._display(step, epoch, lr)
+
+    def _display(self, step: int, epoch: int, lr: float) -> None:
+        vals = (self.acc / self.n).tolist()          # the one host copy
+        dt = time.time() - self.t0
+        avg = dict(zip(self.keys, vals))
+        parts = ", ".join(f"{k}: {v:.4f}" for k, v in avg.items()
+                          if k != "fg_cnt")
+        fg = avg.get("fg_cnt")
+        fg_str = f", fg={fg:.0f}" if fg is not None else ""
+        print(f"[session] epoch {epoch:2d} step {step:6d} lr {lr:.2e} "
+              f"time/iter {dt / self.n:.3f}s{fg_str} | {parts}", flush=True)
+        if self.jsonl:
+            self.jsonl.write(json.dumps({"step": step, "epoch": epoch,
+                                         "lr": lr,
+                                         "time_per_iter": dt / self.n,
+                                         **avg}) + "\n")
+            self.jsonl.flush()
+        self.acc, self.n, self.t0 = None, 0, time.time()
+
+    def close(self) -> None:
+        if self.jsonl:
+            self.jsonl.close()
 
 
 def build_test_parser(description: str) -> argparse.ArgumentParser:

@@ -7,7 +7,9 @@
         --net vgg16 --load_name weights.pt [--eval_bs 4] [--device cpu]
 
 ``--load_name`` takes a port state dict (``torch.save(model.state_dict())``,
-``.pt``) or an ``.npz`` of flattened JAX params whose keys are the flax paths
+``.pt``), a train checkpoint of ``tllod_torch.cli.daf_train`` (``.pth``,
+whose ``detector`` subset is loaded, as ``methods/da_runner.py:210-211``
+does), or an ``.npz`` of flattened JAX params whose keys are the flax paths
 (``backbone/conv1_1/kernel``, ...); method-only subtrees are dropped.
 """
 
@@ -22,6 +24,7 @@ from tllod_torch.cli.common import DATASET_MAP, build_test_parser, resolve_confi
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.eval_engine import evaluate_model
 from tllod_torch.models.faster_rcnn import FasterRCNN
+from tllod_torch.utils.checkpoint import detector_params
 from tllod_torch.zoo import load_jax_params
 
 
@@ -29,9 +32,11 @@ def load_weights(model: FasterRCNN, path: str) -> None:
     if path.endswith(".npz"):
         with np.load(path) as z:
             load_jax_params(model, {k: z[k] for k in z.files})
-    else:
-        sd = torch.load(path, map_location=model.device, weights_only=True)
-        model.load_state_dict(sd, strict=True)
+        return
+    sd = torch.load(path, map_location=model.device, weights_only=True)
+    if "params" in sd:            # a train checkpoint: its detector subset
+        sd = detector_params(sd["params"])
+    model.load_state_dict(sd, strict=True)
 
 
 def main(argv=None):

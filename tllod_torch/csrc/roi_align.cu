@@ -118,6 +118,102 @@ roi_align_avg_kernel(const T* __restrict__ feat, const float* __restrict__ rois,
   }
 }
 
+// RoIAlignAvg backward: the map gradient of the forward above.
+//
+// Replaces the backward of the custom VJP tllod_tpu/ops/roi_align_pallas.py::
+// roi_align_pallas (_bwd, :144-150), which differentiates the XLA gather
+// formulation: g times the bilinear weight, scatter-added into the four
+// corners of every in-map sample; the RoIs get no gradient.
+//
+// The gradient of sample (k, l) of the S x S grid is 0.25 times the sum of
+// g[i, j] over i in {k-1, k} and j in {l-1, l}, each within [0, P); it goes
+// to the sample's four corners with the forward's weights (negative on the
+// last row or column, where the forward extrapolates). A sample outside the
+// map, or a RoI that names no image, gives nothing. hr and wr are recomputed
+// exactly as the forward does.
+//
+// Design. One block per (RoI, 128 channels), threads along C as in the
+// forward, so the reads of g and the four atomicAdds of a sample each touch
+// 128 consecutive floats. Each thread keeps the previous and the current
+// row of g (P values each) in registers, so every g value is read once. The
+// gradient is accumulated with atomicAdd into a float32 buffer that the
+// launcher zeroes first; for a bfloat16 map the caller casts the float32
+// buffer once at the end. Atomic order changes from run to run, so the sum
+// is not bit-reproducible.
+//
+// Bound. Train step, one 600 x 1200 image per domain: g is 256 (source) or
+// 300 (target) x 7 x 7 x 512 float32, 25.7 or 30.1 MB read once, and the map
+// gradient 1 x 37 x 75 x 512 float32, 5.7 MB written: about 9.4 / 10.7 us at
+// 3.35 TB/s. The arithmetic (about 16 flops per sample and channel) is far
+// below the float32 rate, but the 4 * S * S atomics per (RoI, channel), 33.6 M
+// at 256 RoIs, go through L2 and contend where RoIs overlap.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+roi_align_avg_backward_kernel(const T* __restrict__ grad_out,
+                              const float* __restrict__ rois,
+                              float* __restrict__ grad_feat, int B, int H,
+                              int W, int C, int P, float spatial_scale) {
+  const int r = blockIdx.x;
+  const int c = blockIdx.y * kThreads + threadIdx.x;
+  if (c >= C) return;
+  const int S = P + 1;
+  const float* roi = rois + (size_t)r * 5;
+  const int b = (int)roi[0];
+  if (b < 0 || b >= B) return;  // no such image: no gradient
+  const float x1 = roi[1] * spatial_scale;
+  const float y1 = roi[2] * spatial_scale;
+  const float x2 = roi[3] * spatial_scale;
+  const float y2 = roi[4] * spatial_scale;
+  const float roi_w = fmaxf(x2 - x1 + 1.0f, 0.0f);
+  const float roi_h = fmaxf(y2 - y1 + 1.0f, 0.0f);
+  const float bin_w = roi_w / (float)(S - 1);
+  const float bin_h = roi_h / (float)(S - 1);
+  const float fh = (float)H, fw = (float)W;
+  const T* g_r = grad_out + (size_t)r * P * P * C + c;
+  float* gb = grad_feat + (size_t)b * H * W * C + c;
+
+  float gprev[kMaxSamples], gcur[kMaxSamples];
+#pragma unroll
+  for (int j = 0; j < kMaxSamples; ++j) gprev[j] = 0.0f;
+  for (int k = 0; k < S; ++k) {
+    // gcur[j] = g[k, j] for j < P, 0 past the last output row/column
+#pragma unroll
+    for (int j = 0; j < kMaxSamples; ++j) {
+      gcur[j] = (k < P && j < P) ? load_f(g_r + ((size_t)k * P + j) * C)
+                                 : 0.0f;
+    }
+    const float yy = y1 + (float)k * bin_h;
+    const bool in_y = (yy >= 0.0f) && (yy < fh);
+    const float y0 = fminf(floorf(yy), fh - 2.0f);
+    const float hr = yy - y0;
+    const int y0i = min(max((int)y0, 0), H - 2);
+    float* row0 = gb + (size_t)y0i * W * C;
+    float* row1 = row0 + (size_t)W * C;
+#pragma unroll
+    for (int l = 0; l < kMaxSamples; ++l) {
+      if (l < S) {
+        const float xx = x1 + (float)l * bin_w;
+        if (in_y && (xx >= 0.0f) && (xx < fw)) {
+          // zero entries stand for the out-of-range neighbours
+          const float left_prev = l > 0 ? gprev[l - 1] : 0.0f;
+          const float left_cur = l > 0 ? gcur[l - 1] : 0.0f;
+          const float gs =
+              (((left_prev + gprev[l]) + left_cur) + gcur[l]) * 0.25f;
+          const float x0 = fminf(floorf(xx), fw - 2.0f);
+          const float wr = xx - x0;
+          const int x0i = min(max((int)x0, 0), W - 2);
+          atomicAdd(row0 + (size_t)x0i * C, gs * (1.0f - wr) * (1.0f - hr));
+          atomicAdd(row0 + (size_t)(x0i + 1) * C, gs * wr * (1.0f - hr));
+          atomicAdd(row1 + (size_t)x0i * C, gs * (1.0f - wr) * hr);
+          atomicAdd(row1 + (size_t)(x0i + 1) * C, gs * wr * hr);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxSamples; ++j) gprev[j] = gcur[j];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -147,6 +243,35 @@ int tllod_roi_align_avg_forward(const void* feat, const void* rois, void* out,
     roi_align_avg_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         (const __nv_bfloat16*)feat, (const float*)rois, (__nv_bfloat16*)out, B,
         H, W, C, P, spatial_scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// grad_out: (R, P, P, C) contiguous, dtype 0 = float32, 1 = bfloat16;
+// rois: (R, 5) float32; grad_feat: (B, H, W, C) float32, zeroed here, then
+// accumulated into.
+int tllod_roi_align_avg_backward(const void* grad_out, const void* rois,
+                                 void* grad_feat, int dtype, int B, int H,
+                                 int W, int C, int R, int P,
+                                 float spatial_scale, void* stream) {
+  if (P < 1 || P + 1 > kMaxSamples || H < 2 || W < 2) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(
+      grad_feat, 0, (size_t)B * H * W * C * sizeof(float), s);
+  if (err != cudaSuccess || R == 0 || C == 0) return (int)err;
+  const dim3 grid(R, (C + kThreads - 1) / kThreads);
+  if (dtype == 0) {
+    roi_align_avg_backward_kernel<float><<<grid, kThreads, 0, s>>>(
+        (const float*)grad_out, (const float*)rois, (float*)grad_feat, B, H,
+        W, C, P, spatial_scale);
+  } else if (dtype == 1) {
+    roi_align_avg_backward_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        (const __nv_bfloat16*)grad_out, (const float*)rois,
+        (float*)grad_feat, B, H, W, C, P, spatial_scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

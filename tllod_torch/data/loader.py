@@ -1,24 +1,187 @@
-"""Eval batch loader (``EvalLoader`` of ``tllod_tpu/data/loader.py:205-329``).
+"""Batch loaders (copies of ``DetectionLoader`` and ``EvalLoader``,
+``tllod_tpu/data/loader.py:48-329``; reference ``roibatchLoader.py``).
 
-Emits numpy batches ``{"im_data": (B, H, W, 3) f32 BGR mean-subtracted,
-"im_info": (B, 3) (content_h, content_w, scale), "gt_boxes", "num_boxes"}``;
-``im_info`` carries the true content size, so anchors and clipping treat the
-bucket padding as outside the image. The training loader comes with the
-training slice.
+Both emit numpy batches ``{"im_data": (B, H, W, 3) f32 BGR
+mean-subtracted, "im_info": (B, 3) (content_h, content_w, scale),
+"gt_boxes": (B, MAX_GT, 5), "num_boxes": (B,)}``, and the training loader
+adds ``"domain": (B,)``. ``im_info`` carries the true content size, so
+anchors and clipping treat the padding as outside the image. Images are
+padded to multiples of ``pad_multiple``, so the Cityscapes set at shortest
+side 600 is one 600×1200 shape. ``cv2`` is imported on first image load.
 """
 
 from __future__ import annotations
 
-from typing import List
+import queue
+import threading
+from typing import Dict, Iterator, List
 
 import numpy as np
 
 from tllod_torch.config import Config
-from tllod_torch.data.transforms import load_image_bgr, prep_image, scaled_size
+from tllod_torch.data.transforms import (crop_to_ratio, load_image_bgr,
+                                         prep_image, scaled_size)
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+class DetectionLoader:
+    """Infinite (epoch-looping) training loader."""
+
+    def __init__(self, roidb: List[dict], cfg: Config, *, batch_size: int = 1,
+                 domain: int = 1, seed: int = 3, pad_multiple: int = 100,
+                 prefetch: int = 4, shuffle: bool = True,
+                 num_workers: int = 0):
+        self.roidb = roidb
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.domain = domain
+        self.pad_multiple = pad_multiple
+        self.max_gt = cfg.MAX_NUM_GT_BOXES
+        self.shuffle = shuffle
+        self.seed = seed
+        self.rng = np.random.RandomState(seed)
+        self.prefetch = prefetch
+        # decode-pool width (the reference's --nw DataLoader workers,
+        # DAF_train.py:71-73). Per-sample RNG is derived from
+        # (seed, epoch, position), so batches are bit-identical at any
+        # worker count; cv2 releases the GIL, so threads scale on
+        # multi-core hosts.
+        self.num_workers = num_workers
+
+        ratios = np.array([min(max(e["width"] / float(e["height"]), 0.5), 2.0)
+                           for e in roidb])
+        self.order = np.argsort(ratios)
+        self.ratios = ratios[self.order]
+        # per-batch target ratio (reference roibatchLoader.py:38-55)
+        n = len(roidb)
+        self.num_batches = int(np.ceil(n / batch_size))
+        self.batch_ratio = np.ones(self.num_batches)
+        for i in range(self.num_batches):
+            lo, hi = i * batch_size, min((i + 1) * batch_size, n) - 1
+            if self.ratios[hi] < 1:
+                self.batch_ratio[i] = self.ratios[lo]
+            elif self.ratios[lo] > 1:
+                self.batch_ratio[i] = self.ratios[hi]
+
+    def __len__(self):
+        return self.num_batches
+
+    @property
+    def epoch_size(self) -> int:
+        return self.num_batches
+
+    def _load_sample(self, entry: dict, target_ratio: float,
+                     rng: np.random.RandomState) -> dict:
+        im = load_image_bgr(entry["image"])
+        if entry["flipped"]:
+            im = im[:, ::-1, :]
+        # multi-scale: one random scale per image (reference
+        # lib/roi_data_layer/minibatch.py:29-32); single-entry SCALES is the
+        # common case and keeps the bucket set minimal
+        scales = self.cfg.TRAIN.SCALES
+        target = scales[rng.randint(len(scales))] if len(scales) > 1 \
+            else scales[0]
+        im, scale = prep_image(im, self.cfg.PIXEL_MEANS, target)
+        gt = np.zeros((len(entry["boxes"]), 5), np.float32)
+        gt[:, :4] = entry["boxes"] * scale
+        gt[:, 4] = entry["gt_classes"]
+        rng.shuffle(gt)
+        if entry.get("need_crop"):
+            im, gt4 = crop_to_ratio(im, gt[:, :4], target_ratio, rng)
+            gt = np.concatenate([gt4, gt[:, 4:5]], axis=1)
+        # drop degenerate boxes (reference roibatchLoader.py:191-194)
+        keep = (gt[:, 0] != gt[:, 2]) & (gt[:, 1] != gt[:, 3])
+        gt = gt[keep]
+        return {"im": im, "scale": scale, "gt": gt}
+
+    def _make_batch(self, samples: List[dict]) -> Dict[str, np.ndarray]:
+        b = len(samples)
+        hs = [s["im"].shape[0] for s in samples]
+        ws = [s["im"].shape[1] for s in samples]
+        ph = _round_up(max(hs), self.pad_multiple)
+        pw = _round_up(max(ws), self.pad_multiple)
+        im_data = np.zeros((b, ph, pw, 3), np.float32)
+        im_info = np.zeros((b, 3), np.float32)
+        gt_boxes = np.zeros((b, self.max_gt, 5), np.float32)
+        num_boxes = np.zeros((b,), np.int32)
+        for i, s in enumerate(samples):
+            h, w = s["im"].shape[:2]
+            im_data[i, :h, :w] = s["im"]
+            im_info[i] = (h, w, s["scale"])
+            n = min(len(s["gt"]), self.max_gt)
+            gt_boxes[i, :n] = s["gt"][:n]
+            num_boxes[i] = n
+        return {"im_data": im_data, "im_info": im_info, "gt_boxes": gt_boxes,
+                "num_boxes": num_boxes,
+                "domain": np.full((b,), self.domain, np.int32)}
+
+    def _sample_rng(self, epoch: int, position: int) -> np.random.RandomState:
+        """Deterministic per-sample stream, independent of worker count."""
+        return np.random.RandomState(
+            (self.seed * 1000003 + epoch * 8191 + position) % (2 ** 31 - 1))
+
+    def _load_batch(self, bi: int, epoch: int) -> Dict[str, np.ndarray]:
+        lo = bi * self.batch_size
+        idxs = self.order[lo: lo + self.batch_size]
+        tr = self.batch_ratio[bi]
+        samples = [self._load_sample(self.roidb[j], tr,
+                                     self._sample_rng(epoch, lo + k))
+                   for k, j in enumerate(idxs)]
+        return self._make_batch(samples)
+
+    def _epoch_batches(self, epoch: int = 0
+                       ) -> Iterator[Dict[str, np.ndarray]]:
+        batch_order = (self.rng.permutation(self.num_batches)
+                       if self.shuffle else np.arange(self.num_batches))
+        if self.num_workers <= 1:
+            for bi in batch_order:
+                yield self._load_batch(bi, epoch)
+            return
+        # decode pool: submit a sliding window of batches, yield in order
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
+            pending: deque = deque()
+            for bi in batch_order[: 2 * self.num_workers]:
+                pending.append(ex.submit(self._load_batch, bi, epoch))
+            rest = batch_order[2 * self.num_workers:]
+            ri = 0
+            while pending:
+                batch = pending.popleft().result()
+                if ri < len(rest):
+                    pending.append(
+                        ex.submit(self._load_batch, rest[ri], epoch))
+                    ri += 1
+                yield batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        """Yield batches forever (epoch loop), prefetched by a worker
+        thread."""
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def worker():
+            epoch = 0
+            while not stop.is_set():
+                for batch in self._epoch_batches(epoch):
+                    if stop.is_set():
+                        return
+                    q.put(batch)
+                epoch += 1
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                yield q.get()
+        finally:
+            stop.set()
+            # drain so the worker can exit
+            while not q.empty():
+                q.get_nowait()
 
 
 class EvalLoader:

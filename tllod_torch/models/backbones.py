@@ -12,8 +12,9 @@
 
 Parameter names follow the flax tree (``conv1_1`` … ``conv5_3``, ``fc6``,
 ``fc7``), so :func:`tllod_torch.zoo.from_jax_params` maps one onto the other
-name for name. The frozen-block cut of training (``backbones.py:69-70``)
-comes with the training slice.
+name for name. ``frozen_blocks=2`` freezes conv1-2 as ``backbones.py:69-70``
+does: the graph is cut after block 2 and those weights take no gradient.
+The c3/c4/c5 taps and ``stage_range`` come with MAF, ATF and IDF.
 """
 
 from __future__ import annotations
@@ -31,14 +32,17 @@ _VGG_BLOCKS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
 class VGG16Features(nn.Module):
     """conv1_1 .. conv5_3, maxpools after blocks 1-4 (pool5 dropped)."""
 
-    def __init__(self, width: float = 1.0, device=None):
+    def __init__(self, width: float = 1.0, frozen_blocks: int = 2,
+                 device=None):
         super().__init__()
+        self.frozen_blocks = frozen_blocks
         in_ch = 3
         for bi, (ch, n_convs) in enumerate(_VGG_BLOCKS):
             ch = max(8, int(ch * width))
             for ci in range(n_convs):
-                self.add_module(f"conv{bi + 1}_{ci + 1}", nn.Conv2d(
-                    in_ch, ch, 3, padding=1, device=device))
+                conv = nn.Conv2d(in_ch, ch, 3, padding=1, device=device)
+                conv.requires_grad_(bi >= frozen_blocks)
+                self.add_module(f"conv{bi + 1}_{ci + 1}", conv)
                 in_ch = ch
         self.out_channels = in_ch
 
@@ -50,25 +54,39 @@ class VGG16Features(nn.Module):
             for ci in range(n_convs):
                 x = F.relu(getattr(self, f"conv{bi + 1}_{ci + 1}")(x),
                            inplace=True)
+            if bi + 1 == self.frozen_blocks:
+                x = x.detach()
         return x
 
 
+def dropout(x: torch.Tensor, p: float, rng) -> torch.Tensor:
+    """Inverted dropout with its keep mask drawn from ``rng`` (a
+    :class:`tllod_torch.train.StepRandom`), written as flax's
+    ``where(keep, x / (1 - p), 0)``."""
+    keep = rng.uniform(x.shape) < 1.0 - p
+    return torch.where(keep, x * (1.0 / (1.0 - p)), 0.0)
+
+
 class VGG16Head(nn.Module):
-    """fc6/fc7 over (R, P, P, C) pooled features → (R, dim)."""
+    """fc6/fc7 over (R, P, P, C) pooled features → (R, dim); dropout 0.5
+    after each when ``deterministic`` is False, with masks from ``rng``."""
 
     def __init__(self, in_features: int, dim: int = 4096, device=None):
         super().__init__()
         self.fc6 = nn.Linear(in_features, dim, device=device)
         self.fc7 = nn.Linear(dim, dim, device=device)
 
-    def forward(self, pooled: torch.Tensor, *,
-                deterministic: bool = True) -> torch.Tensor:
+    def forward(self, pooled: torch.Tensor, *, deterministic: bool = True,
+                rng=None) -> torch.Tensor:
         r = pooled.shape[0]
         x = pooled.permute(0, 3, 1, 2).reshape(r, -1)    # (R, C*P*P)
         x = F.relu(self.fc6(x))
-        x = F.dropout(x, 0.5, training=not deterministic)
+        if not deterministic:
+            x = dropout(x, 0.5, rng)
         x = F.relu(self.fc7(x))
-        return F.dropout(x, 0.5, training=not deterministic)
+        if not deterministic:
+            x = dropout(x, 0.5, rng)
+        return x
 
 
 def backbone_for(net: str, pool_size: int, device=None

@@ -1,5 +1,6 @@
-"""Faster R-CNN assembly, eval path (``tllod_tpu/models/faster_rcnn.py:
-37-292``; reference ``lib/model/faster_rcnn/faster_rcnn.py:19-137``).
+"""Faster R-CNN assembly: backbone → RPN → RoI sampling → box head → losses
+(``tllod_tpu/models/faster_rcnn.py:37-300``; reference
+``lib/model/faster_rcnn/faster_rcnn.py:19-137``).
 
 The granular API of the JAX module is kept so method wrappers can compose
 it: :meth:`features`, :meth:`anchors_for`, :meth:`rpn_rois`,
@@ -14,9 +15,11 @@ NCHW with ``channels_last`` strides, the backbone and RPN convolutions run
 in ``channels_last``, and the map comes back as an NHWC-contiguous view that
 the RoIAlign kernel reads without a copy.
 
-This slice ports inference. RPN losses, proposal-target sampling and the
-head losses come with the training slice and raise here for now; so do the
-``pool`` and ``crop`` pooling modes.
+Training (``training=True``) draws its random numbers from a ``rng``
+argument, a :class:`tllod_torch.train.StepRandom`: the anchor-target and
+proposal-target priorities and the dropout masks, in the order the JAX
+module draws its ``sampling`` and ``dropout`` keys. The ``pool`` and
+``crop`` pooling modes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -31,8 +34,11 @@ from torch import nn
 from tllod_torch.config import Config
 from tllod_torch.device import resolve_device
 from tllod_torch.models.backbones import backbone_for
-from tllod_torch.models.rpn import RPNHead, proposal_layer, rpn_probs
+from tllod_torch.models.rpn import (RoiSamples, RPNHead, anchor_target,
+                                    proposal_layer, proposal_target,
+                                    rpn_probs)
 from tllod_torch.ops.anchors import generate_anchors, shift_anchors
+from tllod_torch.ops.losses import smooth_l1_loss, softmax_cross_entropy
 from tllod_torch.ops.roi_align import roi_align_avg
 
 
@@ -113,18 +119,20 @@ class FasterRCNN(nn.Module):
     def rpn_rois(self, base_feat: torch.Tensor, im_info: torch.Tensor,
                  gt_boxes=None, *, training: bool = False,
                  compute_loss: bool = False,
-                 post_nms_top_n: Optional[int] = None) -> Dict[str, Any]:
-        """RPN head + proposal layer. ``training`` picks the TRAIN/TEST
-        proposal params like the reference's ``cfg_key``."""
-        if compute_loss:
-            raise NotImplementedError(
-                "RPN losses come with the training slice")
-        rcfg = self.cfg.rpn_cfg(training)
+                 post_nms_top_n: Optional[int] = None,
+                 rng=None) -> Dict[str, Any]:
+        """RPN head + proposal layer (+ anchor targets and both RPN losses
+        when ``training and compute_loss``, ``faster_rcnn.py:112-132``).
+        ``training`` picks the TRAIN/TEST proposal params like the
+        reference's ``cfg_key``."""
+        cfg = self.cfg
+        rcfg = cfg.rpn_cfg(training)
         cls_score, bbox_pred = self.rpn(base_feat.permute(0, 3, 1, 2))
-        # box decode in float32 whatever the compute dtype
+        # box decode and losses in float32 whatever the compute dtype; NHWC,
+        # so anchors follow the (h, w, a) order of the JAX package
         cls_score = cls_score.permute(0, 2, 3, 1).float()
         bbox_pred = bbox_pred.permute(0, 2, 3, 1).float()
-        fg_prob, _ = rpn_probs(cls_score)
+        fg_prob, logits = rpn_probs(cls_score)
 
         anchors = self.anchors_for(base_feat.shape[1], base_feat.shape[2])
         rois, valid = proposal_layer(
@@ -133,8 +141,29 @@ class FasterRCNN(nn.Module):
             post_nms_top_n=post_nms_top_n or rcfg.RPN_POST_NMS_TOP_N,
             nms_thresh=rcfg.RPN_NMS_THRESH)
         zero = torch.zeros((), device=rois.device)
-        return {"rois": rois, "rois_valid": valid, "rpn_cls_prob": fg_prob,
-                "rpn_loss_cls": zero, "rpn_loss_box": zero}
+        out = {"rois": rois, "rois_valid": valid, "rpn_cls_prob": fg_prob,
+               "rpn_loss_cls": zero, "rpn_loss_box": zero}
+        if not (training and compute_loss):
+            return out
+
+        b, h, w = base_feat.shape[:3]
+        ka = anchors.shape[0]
+        tgt = anchor_target(gt_boxes, im_info, anchors, cfg,
+                            priorities=(rng.uniform((b, ka)),
+                                        rng.uniform((b, ka))))
+        flat_labels = tgt.labels.reshape(-1)
+        out["rpn_loss_cls"] = softmax_cross_entropy(
+            logits.reshape(b * ka, 2), torch.clamp(flat_labels, min=0),
+            (flat_labels >= 0).float())
+        a = self.num_anchors
+        in_w = tgt.in_weights[..., None].expand(b, ka, 4).reshape(b, h, w,
+                                                                  4 * a)
+        out_w = tgt.out_weights[..., None].expand(b, ka, 4).reshape(b, h, w,
+                                                                    4 * a)
+        out["rpn_loss_box"] = smooth_l1_loss(
+            bbox_pred, tgt.bbox_targets.reshape(b, h, w, 4 * a), in_w, out_w,
+            sigma=3.0, reduce_dims=(1, 2, 3))
+        return out
 
     def roi_features(self, base_feat: torch.Tensor, rois: torch.Tensor, *,
                      training: bool = False) -> torch.Tensor:
@@ -149,9 +178,9 @@ class FasterRCNN(nn.Module):
         return roi_align_avg(base_feat, rois, out_size=cfg.POOLING_SIZE,
                              spatial_scale=1.0 / cfg.FEAT_STRIDE[0])
 
-    def box_head(self, pooled: torch.Tensor, *,
-                 deterministic: bool = True) -> torch.Tensor:
-        return self.head(pooled, deterministic=deterministic)
+    def box_head(self, pooled: torch.Tensor, *, deterministic: bool = True,
+                 rng=None) -> torch.Tensor:
+        return self.head(pooled, deterministic=deterministic, rng=rng)
 
     def box_outputs(self, fc7: torch.Tensor):
         # f32 logits/deltas regardless of the compute dtype
@@ -159,66 +188,102 @@ class FasterRCNN(nn.Module):
 
     # ---- full forward ----
 
+    def head_losses(self, fc7: torch.Tensor, samples: RoiSamples
+                    ) -> Dict[str, Any]:
+        """Box-head outputs + RCNN losses for sampled RoIs
+        (``faster_rcnn.py:177-198``)."""
+        cls_score, bbox_pred = self.box_outputs(fc7)
+        labels = samples.labels.reshape(-1)
+        if not self.class_agnostic:
+            # the 4 regression columns of each RoI's class
+            bp = bbox_pred.reshape(bbox_pred.shape[0], -1, 4)
+            bbox_pred = torch.gather(
+                bp, 1, labels.long()[:, None, None].expand(-1, 1, 4))[:, 0]
+        return {
+            "cls_score": cls_score,
+            "cls_prob": F.softmax(cls_score, dim=1),
+            "bbox_pred": bbox_pred,
+            "rcnn_loss_cls": softmax_cross_entropy(cls_score, labels),
+            "rcnn_loss_box": smooth_l1_loss(
+                bbox_pred, samples.bbox_targets.reshape(-1, 4),
+                samples.in_weights.reshape(-1, 4),
+                samples.out_weights.reshape(-1, 4)),
+            "rois_label": labels,
+        }
+
     def forward_pre_head(self, base_feat, im_info, gt_boxes=None, *,
                          training: bool = False,
                          supervised: Optional[bool] = None,
-                         post_nms_top_n: Optional[int] = None):
-        """RPN → RoI pooling. Returns ``(out, samples, pooled)``; ``samples``
-        is None, as target sampling comes with the training slice."""
+                         post_nms_top_n: Optional[int] = None, rng=None):
+        """RPN → (proposal-target sampling when ``supervised``) → RoI
+        pooling. Returns ``(out, samples, pooled)``, so method wrappers can
+        run the source and target RoIs through one fc6/fc7 pass."""
         if supervised is None:
             supervised = training
-        if supervised:
-            raise NotImplementedError(
-                "proposal-target sampling comes with the training slice")
         b = base_feat.shape[0]
         rpn_out = self.rpn_rois(base_feat, im_info, gt_boxes,
-                                training=False, compute_loss=False,
-                                post_nms_top_n=post_nms_top_n)
+                                training=supervised, compute_loss=supervised,
+                                post_nms_top_n=post_nms_top_n, rng=rng)
         rois = rpn_out["rois"]
-        zero = rpn_out["rpn_loss_cls"]
+        zero = torch.zeros((), device=rois.device)
         out: Dict[str, Any] = {
             "base_feat": base_feat,
             "rpn_rois": rois,
             "rois_valid": rpn_out["rois_valid"],
-            "rpn_loss_cls": zero,
-            "rpn_loss_box": zero,
+            "rpn_loss_cls": rpn_out["rpn_loss_cls"],
+            "rpn_loss_box": rpn_out["rpn_loss_box"],
             "rpn_cls_prob": rpn_out["rpn_cls_prob"],
             "rcnn_loss_cls": zero,
             "rcnn_loss_box": zero,
             "rois_label": None,
-            "rois": rois,
         }
-        pooled = self.roi_features(base_feat,
-                                   rois.reshape(b * rois.shape[1], 5),
-                                   training=training)
-        return out, None, pooled
+        samples: Optional[RoiSamples] = None
+        if supervised:
+            n, s = rois.shape[1] + gt_boxes.shape[1], self.cfg.TRAIN.BATCH_SIZE
+            samples = proposal_target(
+                rois, gt_boxes, self.cfg,
+                priorities=[rng.uniform(shape)
+                            for shape in ((b, n), (b, n), (b, s), (b, s))])
+            rois = samples.rois
+        pooled = self.roi_features(
+            base_feat, rois.reshape(b * rois.shape[1], 5).contiguous(),
+            training=training)
+        out["rois"] = rois
+        return out, samples, pooled
 
-    def finish_head(self, out: Dict[str, Any], samples, fc7
-                    ) -> Dict[str, Any]:
-        """Box-head outputs given fc7 rows for ``out['rois']``."""
-        if samples is not None:
-            raise NotImplementedError(
-                "head losses come with the training slice")
+    def finish_head(self, out: Dict[str, Any],
+                    samples: Optional[RoiSamples], fc7) -> Dict[str, Any]:
+        """Box-head outputs (+ losses given ``samples``) from fc7 rows for
+        ``out['rois']``."""
         b, n_rois = out["rois"].shape[:2]
         out["pooled_feat"] = fc7
-        cls_score, bbox_pred = self.box_outputs(fc7)
-        out["cls_prob"] = F.softmax(cls_score, dim=1).reshape(b, n_rois, -1)
+        if samples is not None:
+            out.update(self.head_losses(fc7, samples))
+            cls_prob, bbox_pred = out["cls_prob"], out["bbox_pred"]
+        else:
+            cls_score, bbox_pred = self.box_outputs(fc7)
+            cls_prob = F.softmax(cls_score, dim=1)
+        out["cls_prob"] = cls_prob.reshape(b, n_rois, -1)
         out["bbox_pred"] = bbox_pred.reshape(b, n_rois, -1)
         return out
 
     def forward_from_features(self, base_feat, im_info, gt_boxes=None, *,
                               training: bool = False,
                               supervised: Optional[bool] = None,
-                              post_nms_top_n: Optional[int] = None
-                              ) -> Dict[str, Any]:
+                              post_nms_top_n: Optional[int] = None,
+                              rng=None) -> Dict[str, Any]:
+        """``training`` turns dropout on; ``supervised`` (default
+        ``training``) picks the TRAIN RPN, target sampling and the losses.
+        DA target passes use ``training=True, supervised=False``."""
         out, samples, pooled = self.forward_pre_head(
             base_feat, im_info, gt_boxes, training=training,
-            supervised=supervised, post_nms_top_n=post_nms_top_n)
-        fc7 = self.box_head(pooled, deterministic=not training)
+            supervised=supervised, post_nms_top_n=post_nms_top_n, rng=rng)
+        fc7 = self.box_head(pooled, deterministic=not training, rng=rng)
         return self.finish_head(out, samples, fc7)
 
     def forward(self, im_data, im_info, gt_boxes=None, *,
-                training: bool = False) -> Dict[str, Any]:
+                training: bool = False, rng=None) -> Dict[str, Any]:
         base_feat = self.features(im_data)
         return self.forward_from_features(base_feat, im_info, gt_boxes,
-                                          training=training)
+                                          training=training, rng=rng)
+

@@ -1,30 +1,43 @@
-"""Region Proposal Network head and proposal layer
-(``tllod_tpu/models/rpn.py:42-148``; reference ``lib/model/rpn/rpn.py``,
-``proposal_layer.py:49-161``).
+"""Region Proposal Network head, proposal layer and target assignment
+(``tllod_tpu/models/rpn.py``; reference ``lib/model/rpn/rpn.py``,
+``proposal_layer.py:49-161``, ``anchor_target_layer.py:48-193``,
+``proposal_target_layer_cascade.py:116-212``).
 
   * :class:`RPNHead`: 3×3 conv (512) + ReLU, then 1×1 convs for 2A scores
     and 4A deltas.
   * :func:`rpn_probs`: the pairwise (bg, fg) softmax over the 2A channel
     layout, background channels ``[:A]`` and foreground ``[A:]``.
   * :func:`proposal_layer`: decode → clip → top-k → NMS → fixed (B, postN, 5)
-    zero-padded RoIs, all images in one NMS launch.
+    zero-padded RoIs, all images in one NMS launch; the RoIs are detached,
+    as the JAX package's ``stop_gradient`` (``rpn.py:144-148``).
+  * :func:`anchor_target` and :func:`proposal_target`: IoU assignment and
+    random subsampling as masked, fixed-count selections ("i.i.d. uniform
+    priority → top by rank"), so a train step never waits on a count.
+    Both take their uniform priorities as an argument: the train step's
+    :class:`tllod_torch.train.StepRandom` draws (a test feeds them the
+    ``jax.random`` draws).
 
 The pre-NMS top-k is a stable descending sort cut to k: ``lax.top_k`` breaks
 ties toward the lower index and ``torch.topk`` promises no order, while a
 stable sort keeps equal scores in index order, so bucket-padded regions,
-where many anchors score the same, select the same boxes as JAX.
-PA-ATF's random proposal sampling (``sample_rng``) is not ported yet.
+where many anchors score the same, select the same boxes as JAX. For the
+same reason :func:`proposal_target` ranks with a stable sort, as
+``jnp.argsort`` does, and :func:`anchor_target` takes only the *values* of
+its top-k cuts. PA-ATF's random proposal sampling (``sample_rng``) is not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tllod_torch.ops.boxes import bbox_transform_inv, clip_boxes
+from tllod_torch.config import Config
+from tllod_torch.ops.boxes import (bbox_overlaps, bbox_transform,
+                                   bbox_transform_inv, clip_boxes)
 from tllod_torch.ops.nms import nms_fixed_batched
 
 
@@ -88,4 +101,172 @@ def proposal_layer(fg_prob: torch.Tensor, bbox_deltas: torch.Tensor,
     boxes = torch.where(valid[..., None], sel, 0.0)
     batch_col = torch.arange(b, dtype=boxes.dtype, device=boxes.device)
     batch_col = batch_col[:, None, None].expand(b, post_nms_top_n, 1)
-    return torch.cat([batch_col, boxes], dim=-1), valid
+    return torch.cat([batch_col, boxes], dim=-1).detach(), valid
+
+
+def _uniforms(priorities: Sequence[torch.Tensor], shapes, device):
+    """The priorities as float32 tensors on ``device``, checked against
+    ``shapes``."""
+    out = [torch.as_tensor(u, dtype=torch.float32, device=device)
+           for u in priorities]
+    if [tuple(u.shape) for u in out] != [tuple(s) for s in shapes]:
+        raise ValueError(f"priorities of shapes {[tuple(u.shape) for u in out]}"
+                         f" given, {[tuple(s) for s in shapes]} expected")
+    return out
+
+
+def _row(values: Sequence[float], like: torch.Tensor) -> torch.Tensor:
+    """A config row as a tensor on ``like``'s device, made by fill kernels:
+    ``torch.tensor(..., device=cuda)`` would wait for the card."""
+    return torch.stack([torch.full((), float(v), dtype=like.dtype,
+                                   device=like.device) for v in values])
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-row gather along dim 1: x (B, N, ...), idx (B, K) → (B, K, ...)."""
+    idx = idx.long()
+    return torch.gather(x, 1, idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+                        .expand(idx.shape + x.shape[2:]))
+
+
+class AnchorTargets(NamedTuple):
+    labels: torch.Tensor        # (B, K*A) in {-1 ignore, 0 bg, 1 fg}
+    bbox_targets: torch.Tensor  # (B, K*A, 4)
+    in_weights: torch.Tensor    # (B, K*A)
+    out_weights: torch.Tensor   # (B, K*A)
+
+
+def anchor_target(gt_boxes: torch.Tensor, im_info: torch.Tensor,
+                  anchors: torch.Tensor, cfg: Config,
+                  priorities: Sequence[torch.Tensor]) -> AnchorTargets:
+    """Assign anchors to gt and subsample to RPN_BATCHSIZE (``rpn.py:
+    158-227``). gt_boxes (B, G, 5) zero-padded; anchors (K*A, 4);
+    ``priorities`` = (u_fg, u_bg), each (B, K*A) uniform in [0, 1)."""
+    t = cfg.TRAIN
+    num_fg = int(t.RPN_FG_FRACTION * t.RPN_BATCHSIZE)
+    b, n = gt_boxes.shape[0], anchors.shape[0]
+    u_fg, u_bg = _uniforms(priorities, [(b, n), (b, n)], anchors.device)
+
+    inside = ((anchors[:, 0] >= 0) & (anchors[:, 1] >= 0)
+              & (anchors[None, :, 2] < torch.floor(im_info[:, 1:2]))
+              & (anchors[None, :, 3] < torch.floor(im_info[:, 0:1])))
+    ov = bbox_overlaps(anchors, gt_boxes[..., :4], mask_zero_area=True)
+    ov = torch.where(inside[..., None], ov, -1.0)                # (B, N, G)
+    max_ov, argmax_ov = ov.max(dim=2)
+
+    labels = torch.full((b, n), -1, dtype=torch.int32, device=ov.device)
+    labels = torch.where(inside & (max_ov < t.RPN_NEGATIVE_OVERLAP),
+                         0, labels)
+    # the best anchor of each gt is positive, ties included; a gt with no
+    # overlap is masked out by the 1e-5 substitution
+    gt_max = ov.max(dim=1, keepdim=True).values
+    gt_max = torch.where(gt_max == 0, 1e-5, gt_max)
+    is_best = (ov == gt_max).any(dim=2)
+    labels = torch.where(is_best, 1, labels)
+    labels = torch.where(inside & (max_ov >= t.RPN_POSITIVE_OVERLAP),
+                         1, labels)
+
+    # disable excess fg, then excess bg: "rank(pr) < k" is "pr >= the k-th
+    # largest", so only the values of the top-k are needed
+    fg = labels == 1
+    pr = torch.where(fg, u_fg, -torch.inf)
+    fg_thr = torch.topk(pr, min(num_fg, n), dim=1).values[:, -1:]
+    labels = torch.where(fg & (pr < fg_thr), -1, labels)
+    num_bg = t.RPN_BATCHSIZE - (labels == 1).sum(dim=1, keepdim=True)
+    bg = labels == 0
+    pr = torch.where(bg, u_bg, -torch.inf)
+    k_cap = min(t.RPN_BATCHSIZE, n)
+    bg_vals = torch.topk(pr, k_cap, dim=1).values
+    bg_thr = torch.gather(bg_vals, 1, torch.clamp(num_bg - 1, 0, k_cap - 1))
+    labels = torch.where(bg & (pr < bg_thr), -1, labels)
+
+    targets = bbox_transform(anchors.expand(b, n, 4),
+                             _take(gt_boxes[..., :4], argmax_ov))
+    targets = torch.where(inside[..., None], targets, 0.0)
+
+    in_w = torch.where(labels == 1, float(t.RPN_BBOX_INSIDE_WEIGHTS[0]), 0.0)
+    # uniform example weighting (RPN_POSITIVE_WEIGHT = -1): every sampled
+    # example weighs 1 / num_examples
+    num_ex = torch.clamp((labels >= 0).sum(dim=1, keepdim=True), min=1)
+    out_w = torch.where(labels >= 0, 1.0 / num_ex.float(), 0.0)
+    return AnchorTargets(labels, targets, in_w, out_w)
+
+
+class RoiSamples(NamedTuple):
+    rois: torch.Tensor          # (B, S, 5)
+    labels: torch.Tensor        # (B, S) int32 class ids (0 = bg)
+    bbox_targets: torch.Tensor  # (B, S, 4) normalized, for the labeled class
+    in_weights: torch.Tensor    # (B, S, 4)
+    out_weights: torch.Tensor   # (B, S, 4)
+
+
+def proposal_target(rois: torch.Tensor, gt_boxes: torch.Tensor, cfg: Config,
+                    priorities: Sequence[torch.Tensor]) -> RoiSamples:
+    """Sample S = TRAIN.BATCH_SIZE RoIs per image with fg fraction
+    TRAIN.FG_FRACTION (``rpn.py:238-315``). rois (B, N, 5) from the
+    proposal layer, gt_boxes (B, G, 5) zero-padded; ``priorities`` =
+    (u1, u2, u3, u4): the fg and bg ranking draws, (B, N + G) each, and the
+    fg and bg with-replacement draws, (B, S) each."""
+    t = cfg.TRAIN
+    s = t.BATCH_SIZE
+    fg_per_image = int(round(t.FG_FRACTION * s)) or 1
+    dev = rois.device
+    b, g = gt_boxes.shape[:2]
+    gt_as_rois = torch.cat([torch.zeros_like(gt_boxes[..., :1]),
+                            gt_boxes[..., :4]], dim=-1)
+    cand = torch.cat([rois, gt_as_rois], dim=1)                 # (B, N+G, 5)
+    n = cand.shape[1]
+    u1, u2, u3, u4 = _uniforms(priorities, [(b, n), (b, n), (b, s), (b, s)],
+                               dev)
+
+    ov = bbox_overlaps(cand[..., 1:5], gt_boxes[..., :4], mask_zero_area=True)
+    max_ov, gt_assign = ov.max(dim=2)
+    cand_labels = _take(gt_boxes[..., 4], gt_assign).to(torch.int32)
+
+    fg = max_ov >= t.FG_THRESH
+    bg = (max_ov < t.BG_THRESH_HI) & (max_ov >= t.BG_THRESH_LO)
+    n_fg_avail = fg.sum(dim=1, keepdim=True)
+    n_bg_avail = bg.sum(dim=1, keepdim=True)
+
+    # fg (resp. bg) candidates first, in uniformly random order; the stable
+    # sort keeps the -inf rest in index order, as jnp.argsort does
+    fg_order = torch.sort(-torch.where(fg, u1, -torch.inf), dim=1,
+                          stable=True).indices
+    bg_order = torch.sort(-torch.where(bg, u2, -torch.inf), dim=1,
+                          stable=True).indices
+
+    # with-replacement draws (reference floor(rand * count))
+    fg_repl = torch.gather(fg_order, 1, torch.floor(
+        u3 * torch.clamp(n_fg_avail, min=1)).long())
+    bg_repl = torch.gather(bg_order, 1, torch.floor(
+        u4 * torch.clamp(n_bg_avail, min=1)).long())
+
+    # three cases: both present / fg only / bg only
+    n_fg = torch.where(n_bg_avail > 0,
+                       torch.clamp(n_fg_avail, max=fg_per_image), s)
+    n_fg = torch.where(n_fg_avail > 0, n_fg, 0)
+
+    slot = torch.arange(s, device=dev)[None, :]
+    fg_pick = torch.where(n_bg_avail > 0, fg_order[:, :s], fg_repl)
+    bg_pick = torch.gather(bg_repl, 1, torch.clamp(slot - n_fg, 0, s - 1))
+    keep = torch.where(slot < n_fg, fg_pick, bg_pick)
+
+    labels = torch.gather(cand_labels, 1, keep)
+    labels = torch.where(slot < n_fg, labels, 0)     # bg slots → class 0
+
+    out_rois = _take(cand, keep)
+    batch_col = torch.arange(b, dtype=out_rois.dtype, device=dev)
+    out_rois = torch.cat([batch_col[:, None, None].expand(b, s, 1),
+                          out_rois[..., 1:]], dim=-1)
+
+    gt_rois = _take(gt_boxes, torch.gather(gt_assign, 1, keep))
+    targets = bbox_transform(out_rois[..., 1:5], gt_rois[..., :4])
+    if t.BBOX_NORMALIZE_TARGETS_PRECOMPUTED:
+        targets = ((targets - _row(t.BBOX_NORMALIZE_MEANS, targets))
+                   / _row(t.BBOX_NORMALIZE_STDS, targets))
+    # only fg rois regress; zero targets elsewhere
+    fg_slot = (labels > 0)[..., None]
+    targets = torch.where(fg_slot, targets, 0.0)
+    in_w = torch.where(fg_slot, _row(t.BBOX_INSIDE_WEIGHTS, targets), 0.0)
+    out_w = (in_w > 0).float()
+    return RoiSamples(out_rois, labels, targets, in_w, out_w)

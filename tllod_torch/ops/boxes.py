@@ -1,6 +1,6 @@
-"""Box math for inference: decode and clip (``tllod_tpu/ops/boxes.py:41-80``).
+"""Box math: encode, decode, clip and IoU (``tllod_tpu/ops/boxes.py``).
 
-Both keep the reference's legacy "+1" box convention (width = x2 - x1 + 1),
+All keep the reference's legacy "+1" box convention (width = x2 - x1 + 1),
 which the published mAP numbers depend on, and take any leading batch dims.
 
 ``pred_cx = dx * width + ctr_x`` is one fused multiply-add with a single
@@ -18,6 +18,55 @@ import torch
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once to ``a``'s float32 type."""
     return (a.double() * b.double() + c.double()).to(a.dtype)
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor
+                   ) -> torch.Tensor:
+    """Encode gt boxes relative to example boxes → (dx, dy, dw, dh);
+    (..., N, 4) × (..., N, 4) → (..., N, 4) (``boxes.py:18``)."""
+    ex_w = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    ex_h = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ex_cx = ex_rois[..., 0] + 0.5 * ex_w
+    ex_cy = ex_rois[..., 1] + 0.5 * ex_h
+
+    gt_w = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gt_h = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gt_cx = gt_rois[..., 0] + 0.5 * gt_w
+    gt_cy = gt_rois[..., 1] + 0.5 * gt_h
+
+    dx = (gt_cx - ex_cx) / ex_w
+    dy = (gt_cy - ex_cy) / ex_h
+    dw = torch.log(gt_w / ex_w)
+    dh = torch.log(gt_h / ex_h)
+    return torch.stack((dx, dy, dw, dh), dim=-1)
+
+
+def bbox_overlaps(boxes: torch.Tensor, query_boxes: torch.Tensor,
+                  mask_zero_area: bool = False) -> torch.Tensor:
+    """Pairwise IoU, (..., N, 4) × (..., K, 4) → (..., N, K) (``boxes.py:
+    83``). With ``mask_zero_area`` an all-zero query box (a padded gt slot)
+    gives 0 and an all-zero candidate box (a padded RoI slot) gives -1."""
+    bx = boxes[..., 2] - boxes[..., 0] + 1.0
+    by = boxes[..., 3] - boxes[..., 1] + 1.0
+    qx = query_boxes[..., 2] - query_boxes[..., 0] + 1.0
+    qy = query_boxes[..., 3] - query_boxes[..., 1] + 1.0
+    areas = (bx * by)[..., :, None]
+    query_areas = (qx * qy)[..., None, :]
+
+    def pair(i):
+        return boxes[..., i][..., :, None], query_boxes[..., i][..., None, :]
+
+    iw = (torch.minimum(*pair(2)) - torch.maximum(*pair(0)) + 1.0).clamp(min=0)
+    ih = (torch.minimum(*pair(3)) - torch.maximum(*pair(1)) + 1.0).clamp(min=0)
+    inter = iw * ih
+    overlaps = inter / (areas + query_areas - inter)
+
+    if mask_zero_area:
+        query_zero = ((qx == 1.0) & (qy == 1.0))[..., None, :]
+        box_zero = ((bx == 1.0) & (by == 1.0))[..., :, None]
+        overlaps = torch.where(query_zero, 0.0, overlaps)
+        overlaps = torch.where(box_zero, -1.0, overlaps)
+    return overlaps
 
 
 def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor

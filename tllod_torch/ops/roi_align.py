@@ -10,11 +10,14 @@
     points in the last row/column extrapolate with weights outside [0, 1].
 
 ``RoIAlignAvg`` samples a (P+1)² grid and average-pools 2×2 / stride 1 down
-to P×P. :func:`roi_align_avg` launches the CUDA kernel
-``csrc/roi_align.cu`` (the port of the Pallas kernel
-``tllod_tpu/ops/roi_align_pallas.py::_kernel``) for CUDA tensors and runs
-:func:`roi_align_avg_plain` for CPU tensors; :func:`roi_align` (one sample
-per bin, no average) is plain PyTorch only.
+to P×P. For CUDA tensors :func:`roi_align_avg` is a
+``torch.autograd.Function`` over two kernels of ``csrc/roi_align.cu``: the
+forward (the port of the Pallas kernel
+``tllod_tpu/ops/roi_align_pallas.py::_kernel``) and the map-gradient
+backward (the port of that file's custom-VJP ``_bwd``); the RoIs get no
+gradient, as in ``_bwd``. CPU tensors run :func:`roi_align_avg_plain`,
+which autograd differentiates: that is the plain version of the backward.
+:func:`roi_align` (one sample per bin, no average) is plain PyTorch only.
 
 Layouts are the JAX package's: ``feats`` is (B, H, W, C) — for the model,
 the NHWC view of a ``channels_last`` NCHW map — and ``rois`` is (R, 5) rows
@@ -109,12 +112,71 @@ def roi_align_avg_plain(feats: torch.Tensor, rois: torch.Tensor, *,
 
 def roi_align_avg(feats: torch.Tensor, rois: torch.Tensor, *, out_size: int,
                   spatial_scale: float) -> torch.Tensor:
-    """RoIAlignAvg → (R, P, P, C): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    """RoIAlignAvg → (R, P, P, C): the CUDA kernels (forward, and backward
+    when ``feats`` requires a gradient) for CUDA tensors, the plain version
+    for CPU tensors."""
     if not feats.is_cuda:
         return roi_align_avg_plain(feats, rois, out_size=out_size,
                                    spatial_scale=spatial_scale)
+    if torch.is_grad_enabled() and feats.requires_grad:
+        return _RoIAlignAvg.apply(feats, rois, out_size, spatial_scale)
     return _roi_align_avg_cuda(feats, rois, out_size, spatial_scale)
+
+
+class _RoIAlignAvg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, rois, out_size, spatial_scale):
+        ctx.save_for_backward(rois)
+        ctx.shape, ctx.dtype = feats.shape, feats.dtype
+        ctx.out_size, ctx.spatial_scale = out_size, spatial_scale
+        return _roi_align_avg_cuda(feats, rois, out_size, spatial_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (rois,) = ctx.saved_tensors
+        # fc6's flatten makes the incoming gradient a permuted view
+        grad = roi_align_avg_backward(grad_out.contiguous(), rois, ctx.shape,
+                                      out_size=ctx.out_size,
+                                      spatial_scale=ctx.spatial_scale)
+        return grad.to(ctx.dtype), None, None, None
+
+
+def roi_align_avg_backward(grad_out: torch.Tensor, rois: torch.Tensor,
+                           feats_shape, *, out_size: int,
+                           spatial_scale: float) -> torch.Tensor:
+    """The backward kernel: (R, P, P, C) output gradient → float32 (B, H, W,
+    C) map gradient, accumulated with atomics (sum order varies by run)."""
+    b, h, w, c = feats_shape
+    r = rois.shape[0]
+    if not grad_out.is_cuda:
+        raise ValueError("roi_align_avg_backward: CUDA tensors only; CPU "
+                         "tensors take autograd through the plain version")
+    if grad_out.shape != (r, out_size, out_size, c) or rois.shape != (r, 5):
+        raise ValueError(f"roi_align_avg_backward: grad_out (R,P,P,C) and "
+                         f"rois (R,5) expected, got {tuple(grad_out.shape)} "
+                         f"and {tuple(rois.shape)}")
+    if grad_out.dtype not in _DTYPE_CODE or rois.dtype != torch.float32:
+        raise TypeError(f"roi_align_avg_backward: grad_out dtype "
+                        f"{grad_out.dtype}, rois dtype {rois.dtype}")
+    if rois.device != grad_out.device:
+        raise ValueError("roi_align_avg_backward: tensors on different "
+                         "devices")
+    if not (grad_out.is_contiguous() and rois.is_contiguous()):
+        raise ValueError("roi_align_avg_backward: contiguous inputs required")
+    if h < 2 or w < 2 or not 1 <= out_size <= 15:
+        raise ValueError(f"roi_align_avg_backward: needs H, W >= 2 and "
+                         f"1 <= P <= 15, got H={h} W={w} P={out_size}")
+    grad = torch.empty((b, h, w, c), dtype=torch.float32,
+                       device=grad_out.device)
+    lib = _lib()
+    status = lib.tllod_roi_align_avg_backward(
+        grad_out.data_ptr(), rois.data_ptr(), grad.data_ptr(),
+        _DTYPE_CODE[grad_out.dtype], b, h, w, c, r, out_size,
+        float(spatial_scale),
+        torch.cuda.current_stream(grad_out.device).cuda_stream)
+    _kernels.check(lib, status, "roi_align_avg_backward")
+    _kernels.launches["roi_align_avg_backward"] += 1
+    return grad
 
 
 def _roi_align_avg_cuda(feats, rois, out_size, spatial_scale):
@@ -154,9 +216,11 @@ def _roi_align_avg_cuda(feats, rois, out_size, spatial_scale):
 
 def _lib():
     lib = _kernels.load("roi_align")
-    fn = lib.tllod_roi_align_avg_forward
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, ctypes.c_float, vp]
-        fn.restype = ctypes.c_int
+    for fn in (lib.tllod_roi_align_avg_forward,
+               lib.tllod_roi_align_avg_backward):
+        if fn.argtypes is None:
+            vp, i = ctypes.c_void_p, ctypes.c_int
+            fn.argtypes = [vp, vp, vp, i, i, i, i, i, i, i, ctypes.c_float,
+                           vp]
+            fn.restype = ctypes.c_int
     return lib

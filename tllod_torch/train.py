@@ -1,8 +1,11 @@
-"""Inference post-processing (``tllod_tpu/train.py:132-227``; reference
-``methods/DAF/DAF_test.py:264-332``).
+"""The train step and inference post-processing (``tllod_tpu/train.py``;
+reference ``methods/DAF/DAF_train.py:353-446``, ``DAF_test.py:264-332``).
 
-The module keeps the JAX module's name so the counterpart is easy to find;
-the train step comes with the training slice.
+:func:`train_step` runs one forward, backward and optimizer update and
+returns the metrics of the JAX ``_step_body`` (``train.py:51-57``) as
+device tensors, so nothing in the step waits for the card; the logger
+fetches them when it prints. Its random numbers come from a
+:class:`StepRandom` made from (seed, step), as ``fold_in`` makes JAX's.
 
 :func:`postprocess_detections_batch` decodes the head's deltas, clips, maps
 back to raw image coordinates and runs per-class NMS for all B × C
@@ -14,11 +17,78 @@ host-side numpy assembly of one image's ``all_boxes`` row.
 
 from __future__ import annotations
 
+from typing import Any, Callable, Dict, Optional, Sequence
+
 import numpy as np
 import torch
 
 from tllod_torch.ops.boxes import bbox_transform_inv, clip_boxes, fma
 from tllod_torch.ops.nms import nms_fixed_batched
+
+
+class StepRandom:
+    """The random numbers of one train step: every draw is a float32
+    uniform in [0, 1) of a given shape, taken by the samplers as priorities
+    and by dropout as ``u < keep_prob``.
+
+    They come from a ``torch.Generator`` on ``device`` seeded from (seed,
+    step), or, with ``replay``, from that list in draw order (a test feeds
+    it the JAX draws; a card-vs-CPU check feeds the CPU the card's
+    ``drawn``). ``drawn`` keeps this step's draws, in order.
+    """
+
+    def __init__(self, seed: int, step: int, device,
+                 replay: Optional[Sequence[torch.Tensor]] = None):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed((seed * 1_000_003 + step) % (2 ** 63))
+        self.replay = None if replay is None else list(replay)
+        self.drawn = []
+
+    def uniform(self, shape) -> torch.Tensor:
+        if self.replay is None:
+            u = torch.rand(tuple(shape), generator=self.generator,
+                           device=self.device)
+        else:
+            if not self.replay:
+                raise IndexError("replayed random stream is exhausted")
+            u = torch.as_tensor(self.replay.pop(0), dtype=torch.float32,
+                                device=self.device)
+            if tuple(u.shape) != tuple(shape):
+                raise ValueError(f"replayed draw of shape {tuple(u.shape)} "
+                                 f"where {tuple(shape)} is drawn")
+        self.drawn.append(u)
+        return u
+
+
+def step_metrics(out: Dict[str, Any], loss: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """The metric keys of JAX ``_step_body``: every ``*loss``,
+    ``*loss_cls``, ``*loss_box`` and ``dist*`` entry, ``loss``, and
+    ``fg_cnt`` when the step sampled RoIs; detached device tensors."""
+    metrics = {k: v.detach() for k, v in out.items()
+               if k.endswith("loss") or k.endswith("loss_cls")
+               or k.endswith("loss_box") or k.startswith("dist")}
+    metrics["loss"] = loss.detach()
+    if out.get("rois_label") is not None:
+        metrics["fg_cnt"] = (out["rois_label"] > 0).sum()
+    return metrics
+
+
+def train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
+               batch_args: Sequence[Any], *, seed: int, step: int,
+               rng: Optional[StepRandom] = None) -> Dict[str, torch.Tensor]:
+    """One SGD step: ``model(*batch_args, training=True, rng=rng)`` →
+    ``loss_fn(out)`` → backward → ``optimizer.step()``. ``rng`` defaults to
+    the (seed, step) stream on the model's device."""
+    if rng is None:
+        rng = StepRandom(seed, step, model.device)
+    optimizer.zero_grad()
+    out = model(*batch_args, training=True, rng=rng)
+    loss = loss_fn(out)
+    loss.backward()
+    optimizer.step()
+    return step_metrics(out, loss)
 
 
 def postprocess_detections_batch(rois, cls_prob, bbox_pred, im_info, *,

@@ -10,15 +10,73 @@ flax tree:
   bias                        → bias
 
 Reading an orbax checkpoint needs JAX, so weights cross as numpy arrays.
+A method's tree (``detector/…``, ``img_da/…``, ``ins_da/…``) maps onto the
+method module the same way.
+
+:func:`load_pretrained_backbone` fills the backbone and box head from the
+caffe-pretrained ``vgg16_caffe.pth`` the reference trains from
+(``tllod_tpu/zoo.py:58-72, 143-178``): a torchvision-layout state dict,
+which applies unchanged because the head flattens in (C, H, W) order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import os
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+# torchvision VGG16 feature indices → the backbone's conv names
+_VGG_FEATURE_MAP = {
+    0: "conv1_1", 2: "conv1_2",
+    5: "conv2_1", 7: "conv2_2",
+    10: "conv3_1", 12: "conv3_2", 14: "conv3_3",
+    17: "conv4_1", 19: "conv4_2", 21: "conv4_3",
+    24: "conv5_1", 26: "conv5_2", 28: "conv5_3",
+}
+
+
+def pretrained_dir() -> str:
+    return os.environ.get("TLLOD_PRETRAINED_DIR", "pretrained_model")
+
+
+def convert_vgg16(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """torchvision VGG16 state dict → ``backbone.*`` and ``head.*`` entries
+    of the detector's ``state_dict``."""
+    out = {}
+    for idx, name in _VGG_FEATURE_MAP.items():
+        for leaf in ("weight", "bias"):
+            out[f"backbone.{name}.{leaf}"] = sd[f"features.{idx}.{leaf}"]
+    for fc, idx in (("fc6", 0), ("fc7", 3)):
+        for leaf in ("weight", "bias"):
+            out[f"head.{fc}.{leaf}"] = sd[f"classifier.{idx}.{leaf}"]
+    return out
+
+
+def load_pretrained_backbone(detector: nn.Module, net: str,
+                             path: Optional[str] = None) -> bool:
+    """Fill ``detector``'s backbone and head from ``vgg16_caffe.pth`` under
+    ``$TLLOD_PRETRAINED_DIR`` (default ``pretrained_model/``). A missing
+    file, or a net with no such file (``vgg16_thin``), keeps the random init
+    with a warning, as the JAX CLI does; returns whether weights were
+    loaded."""
+    path = path or os.path.join(pretrained_dir(), f"{net}_caffe.pth")
+    if net != "vgg16" or not os.path.exists(path):
+        print(f"WARNING: pretrained weights not found at {path}; keeping "
+              f"random init")
+        return False
+    print(f"Loading pretrained weights from {path}")
+    sd = convert_vgg16(torch.load(path, map_location="cpu",
+                                  weights_only=True))
+    own = detector.state_dict()
+    for k, v in sd.items():
+        if own[k].shape != v.shape:
+            raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, the "
+                             f"model {tuple(own[k].shape)}")
+    detector.load_state_dict(sd, strict=False)
+    return True
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
