@@ -10,15 +10,17 @@ order, as ``jnp.argsort`` does.
 
 :func:`nms_fixed_batched` runs P problems of the same size at once:
 B images in the proposal layer, B × C (image, class) pairs in postprocess.
-For CUDA tensors it launches the bitmask kernel of ``csrc/nms.cu`` once for
-all P problems; for CPU tensors it runs :func:`nms_fixed_plain`.
+For CUDA tensors it launches the kernels of ``csrc/nms.cu`` (for unsorted
+scores a sort kernel, then the tiled bitmask mask and scan kernels, one
+launch each for all P problems); for CPU tensors it runs
+:func:`nms_fixed_plain`.
 :func:`nms_numpy` is the reference-semantics numpy oracle.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -125,37 +127,61 @@ def _nms_cuda(boxes, scores, iou_threshold, max_output, presorted):
         return (torch.zeros((p, max_output), dtype=torch.int64,
                             device=boxes.device),
                 torch.zeros((p,), dtype=torch.int64, device=boxes.device))
-    order = None
-    if not presorted:
-        boxes, scores, order = _sort(boxes, scores)
     boxes, scores = boxes.contiguous(), scores.contiguous()
-    col_blocks = (n + 63) // 64
-    if p > 65535 or col_blocks > 3072:
-        raise ValueError(f"nms: at most 65535 problems of 196608 boxes, got "
-                         f"{p} of {n}")
-    mask = torch.empty((p, n, col_blocks), dtype=torch.int64,
-                       device=boxes.device)
+    buf = nms_scratch(p, n, boxes.device, presorted)
     idx = torch.empty((p, max_output), dtype=torch.int64, device=boxes.device)
     num = torch.empty((p,), dtype=torch.int64, device=boxes.device)
     lib = _lib()
-    status = lib.tllod_nms_sorted(
-        boxes.data_ptr(), scores.data_ptr(), mask.data_ptr(), idx.data_ptr(),
+    status = lib.tllod_nms(
+        boxes.data_ptr(), scores.data_ptr(),
+        *(None if presorted else buf[k].data_ptr()
+          for k in ("keys", "sorted", "order")),
+        buf["mask"].data_ptr(), buf["band"].data_ptr(), idx.data_ptr(),
         num.data_ptr(), p, n, max_output, float(iou_threshold),
         torch.cuda.current_stream(boxes.device).cuda_stream)
     _kernels.check(lib, status, "nms")
     _kernels.launches["nms"] += 1
-    if order is not None:
-        idx = _unsort(idx, num, order)
     return idx, num
 
 
+def nms_scratch(p: int, n: int, device,
+                presorted: bool) -> Dict[str, torch.Tensor]:
+    """The kernels' scratch for P problems of N boxes: ``mask``, the
+    overlap words (P, N, ceil(N/64)) of each row against the tiles two or
+    more right of its own; ``band`` (P, ceil(N/64) * 64 * 2), its words
+    against its own tile and the next; for unsorted scores, the sort's
+    ``keys`` (P, N rounded up to a power of two), ``sorted`` scores and
+    ``order`` (P, N)."""
+    col_blocks = (n + 63) // 64
+    if p > 2 ** 31 - 1 or col_blocks > 3072:
+        raise ValueError(f"nms: at most 2**31 - 1 problems of 196608 boxes, "
+                         f"got {p} of {n}")
+    i64 = dict(dtype=torch.int64, device=device)
+    buf = {"mask": torch.empty((p, n, col_blocks), **i64),
+           "band": torch.empty((p, col_blocks * 128), **i64)}
+    if not presorted:
+        buf["keys"] = torch.empty((p, 1 << (n - 1).bit_length()), **i64)
+        buf["sorted"] = torch.empty((p, n), dtype=torch.float32,
+                                    device=device)
+        buf["order"] = torch.empty((p, n), **i64)
+    return buf
+
+
 def _lib():
+    """The NMS library, its launchers typed: ``tllod_nms`` (all kernels)
+    and, for timing them apart, ``tllod_nms_sort``, ``tllod_nms_mask`` and
+    ``tllod_nms_scan``."""
     lib = _kernels.load("nms")
-    fn = lib.tllod_nms_sorted
-    if fn.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, ctypes.c_float, vp]
-        fn.restype = ctypes.c_int
+    if lib.tllod_nms.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for fn, args in ((lib.tllod_nms,
+                          [vp] * 9 + [i, i, i, f, vp]),
+                         (lib.tllod_nms_sort, [vp, vp, vp, vp, i, i, vp]),
+                         (lib.tllod_nms_mask, [vp, vp, vp, vp, i, i, f, vp]),
+                         (lib.tllod_nms_scan,
+                          [vp, vp, vp, vp, vp, vp, i, i, i, vp])):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib
 
 
