@@ -63,8 +63,16 @@ Phases, each ending the run nonzero on failure:
    steps, one step on each of three 160x320 pairs of noise images runs on
    the card and on the CPU
    with the seeded weights and the same random draws and proposals: losses
-   and every parameter's gradient must agree. Prints one
-   ``{"kernels": [...]}`` line with times and bounds of every kernel.
+   and every parameter's gradient must agree. Then the same for MAF
+   (``[maf]`` lines), ATF (``[atf]``) and PT-MAF (``[pt_maf]``), each
+   with one card-vs-CPU pair: MAF's image discriminators on the c3/c4/c5
+   taps; ATF's second backbone, its target under TEST 6000 -> 2000 and its
+   instance discriminator over the full 2000-row proposal sets, so
+   RoIAlignAvg runs forward and backward at 2000 RoIs; PT-MAF's fg/bg
+   discriminators and a frozen teacher (weights from ``--seed`` +
+   1000) whose RoIAlignAvg forward is held to the plain version too.
+   Prints one ``{"kernels": [...]}`` line with times and bounds of every
+   kernel at every shape.
 6. Prints the card's ``nvidia-smi`` name and power limit, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +93,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -355,13 +364,21 @@ def main() -> int:
     adversarial = _nms_adversarial()
     del model
 
-    # ---- 5. train: the DAF step, its kernels, card vs CPU, profile ----
-    train_kernels, train_summary = train_phase(cfg, args.seed, args.out)
-    kernels += train_kernels
+    # ---- 5. train: the DAF, MAF, ATF and PT-MAF steps, their kernels,
+    #         card vs CPU, profile ----
+    summaries = {}
+    for spec in TRAIN_METHODS:
+        train_kernels, summaries[spec.name] = train_phase(spec, cfg,
+                                                          args.seed, args.out)
+        kernels += train_kernels
+        torch.cuda.empty_cache()
+    log("[train] summary: " + "; ".join(
+        f"{name} {s['ms_per_step']:.3f} ms/step, busy {s['busy_ms']:.3f} ms, "
+        f"peak {s['peak_memory_gib']:.2f} GiB" for name, s in summaries.items()))
     with open(os.path.join(args.out, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_image_ms": per_image_ms,
-                   "train": train_summary, "nms_adversarial": adversarial},
-                  f, indent=1)
+                   "train": summaries.pop("daf"), "methods": summaries,
+                   "nms_adversarial": adversarial}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
 
     # ---- 6. card ----
@@ -607,7 +624,7 @@ def _forward_check(label, feat, rois, kw):
     return got, err
 
 
-def _roi_align_entry(feat, rois, kw, dtype, launches):
+def _roi_align_entry(feat, rois, kw, dtype, launches, label=None):
     import torch
     from tllod_torch.ops.roi_align import roi_align_avg, roi_align_avg_plain
 
@@ -625,7 +642,8 @@ def _roi_align_entry(feat, rois, kw, dtype, launches):
     tol = ({"exact": True} if dtype == torch.float32
            else {"tolerance": {"atol": 1e-3, "rtol": 8e-3}})
     e = _entry("roi_align_avg",
-               f"{str(dtype)[6:]} map {b}x{h}x{w}x{c}, {r} rois, P={p}",
+               (f"{label}: " if label else "")
+               + f"{str(dtype)[6:]} map {b}x{h}x{w}x{c}, {r} rois, P={p}",
                launches, err, k_ms, p_ms, nbytes, ops, wrapper_ms=w_ms,
                **tol, **roi_reuse_stats(f.shape, rois, p,
                                         kw["spatial_scale"]))
@@ -1018,7 +1036,8 @@ def profile_main_path(model, ims, info, out_dir):
 
 def _device_breakdown(prof, wall_ms, label, trace_path):
     """Print the device's busy share of a profiled window and its time by
-    kernel name; write the chrome trace. Returns (busy_ms, top rows)."""
+    kernel name and by kind; write the chrome trace. Returns (busy_ms, top
+    rows, ms by kind)."""
     import torch
 
     # device-side events only (kernels, copies, sets): their durations, by
@@ -1044,13 +1063,38 @@ def _device_breakdown(prof, wall_ms, label, trace_path):
         f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
         f"{len(spans)} device events")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    kinds: dict = {}
+    for name, (ms, _) in ranked:
+        kind = kernel_kind(name)
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    log(f"[profile] {label} by kind: " + ", ".join(
+        f"{k} {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)"
+        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])))
     # the top 15, and the hand kernels wherever they rank
     top = ranked[:15] + [kv for kv in ranked[15:]
                          if "nms_" in kv[0] or "roi_align" in kv[0]]
     for name, (ms, n) in top:
         log(f"[profile] {ms:9.3f} ms {n:5d}x {name[:90]}")
     prof.export_chrome_trace(trace_path)
-    return busy, [(name, ms, n) for name, (ms, n) in top]
+    return busy, [(name, ms, n) for name, (ms, n) in top], kinds
+
+
+def kernel_kind(name: str) -> str:
+    """A device event's kind by its name: the float32 GEMMs of the fc and
+    1x1 layers (cuBLAS/CUTLASS), the convolutions (cuDNN implicit GEMMs),
+    the SGD update and clip, the hand kernels, pools, copies and fills, and
+    the rest (elementwise and reductions)."""
+    n = name.lower()
+    for kind, keys in (("nms", ("nms_",)), ("roi_align", ("roi_align",)),
+                       ("conv", ("implicit_gemm", "conv", "wgrad", "dgrad",
+                                 "fprop")),
+                       ("gemm", ("gemm",)), ("sgd", ("multi_tensor_apply",)),
+                       ("pool", ("pool",)),
+                       ("copy/fill", ("memcpy", "memset", "copy", "fill",
+                                      "catarray"))):
+        if any(k in n for k in keys):
+            return kind
+    return "elementwise/reduce"
 
 
 TRAIN_NET, TRAIN_HW, REF_HW = "vgg16", (600, 1200), (160, 320)
@@ -1063,11 +1107,91 @@ REF_PAIRS = 3               # noise-image pairs of the card-vs-CPU train check
 # the worst one
 REF_GRAD_TOTAL, REF_GRAD_MEDIAN, REF_GRAD_LEAF = 2e-3, 1e-3, 8e-3
 # the convs and fcs whose output goes through a ReLU
-RELU_FED = re.compile(r"(backbone\.conv\d_\d|rpn\.conv|head\.fc[67]|"
-                      r"dc_ip[12]|img_da\.conv1)$")
-LOSS_KEYS = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls",
-             "rcnn_loss_box", "da_img_loss", "da_ins_loss", "da_cst_loss",
-             "tgt_da_img_loss", "tgt_da_ins_loss", "tgt_da_cst_loss")
+RELU_FED = re.compile(r"(backbone(_anc)?\.conv\d_\d|rpn\.conv|head\.fc[67]|"
+                      r"dc_ip[12]|img_da\w*\.(conv1|drm_conv))$")
+DET_KEYS = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls",
+            "rcnn_loss_box")
+LOSS_KEYS = DET_KEYS + ("da_img_loss", "da_ins_loss", "da_cst_loss",
+                        "tgt_da_img_loss", "tgt_da_ins_loss",
+                        "tgt_da_cst_loss")
+DA_KEYS = ("da_img_loss", "da_ins_loss", "tgt_da_img_loss",
+           "tgt_da_ins_loss")
+TEACHER_SEED = 1000         # PT-MAF's teacher: seed + this, so KD is not 0
+
+
+class TrainMethod(NamedTuple):
+    """A DA method's train step as phase 5 drives it: ``tag`` prefixes its
+    lines; ``roi_sites`` and ``nms_sites`` name its RoIAlignAvg and
+    proposal-NMS calls in the order a step makes them (a site called
+    ``teacher`` runs under ``no_grad``); ``limits`` are the card-vs-CPU
+    gradient limits (all parameters, the median one, the worst one)."""
+    name: str
+    tag: str
+    model: str                       # class in tllod_torch.methods.<name>
+    loss_keys: tuple
+    roi_sites: tuple
+    nms_sites: tuple
+    ref_pairs: int
+    limits: tuple
+    teacher: bool = False
+    target_post_train: bool = False  # ATF: the target keeps TRAIN's count
+
+    def loss(self, out):
+        import importlib
+        mod = importlib.import_module(f"tllod_torch.methods.{self.name}")
+        if self.name == "pt_maf":
+            return mod.pt_maf_loss(out, 0.1, out["kd_loss"])
+        return getattr(mod, f"{self.name}_loss")(out)
+
+    def build(self, cfg, seed, device):
+        """The model with weights from ``seed`` and the extra step
+        arguments (PT-MAF's frozen teacher, weights from another seed)."""
+        import importlib
+        from tllod_torch.models.faster_rcnn import FasterRCNN
+        mod = importlib.import_module(f"tllod_torch.methods.{self.name}")
+        model = getattr(mod, self.model)(len(CLASSES), cfg, TRAIN_NET,
+                                         device=device, seed=seed)
+        if not self.teacher:
+            return model, ()
+        teacher = FasterRCNN(len(CLASSES), cfg, TRAIN_NET, device=device,
+                             seed=seed + TEACHER_SEED)
+        return model, (teacher.requires_grad_(False),)
+
+    def cpu_copy(self, model, extra):
+        """The same weights on the CPU."""
+        from tllod_torch.models.faster_rcnn import FasterRCNN
+        cpu = type(model)(len(CLASSES), model.cfg, TRAIN_NET, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             model.state_dict().items()})
+        out = []
+        for t in extra:
+            c = FasterRCNN(len(CLASSES), t.cfg, TRAIN_NET, device="cpu")
+            c.load_state_dict({k: v.cpu() for k, v in
+                               t.state_dict().items()})
+            out.append(c.requires_grad_(False))
+        return cpu, tuple(out)
+
+
+# MAF, ATF and PT-MAF: one pair each; limits about twice the largest
+# reading of seeds 0 and 1 on an H100 (PERF.md section 6), rounded up
+# to 1, 2 or 5 times a power of ten: MAF 9.1e-4, 2.8e-4, 1.6e-3; ATF
+# 2.9e-4, 1.1e-4, 1.5e-3; PT-MAF 8.4e-4, 1.0e-5, 1.4e-3
+TRAIN_METHODS = (
+    TrainMethod("daf", "train", "DAFModel", LOSS_KEYS, ("source", "target"),
+                ("source", "target"), REF_PAIRS,
+                (REF_GRAD_TOTAL, REF_GRAD_MEDIAN, REF_GRAD_LEAF)),
+    TrainMethod("maf", "maf", "MAFModel", DET_KEYS + DA_KEYS,
+                ("source", "target"), ("source", "target"), 1,
+                (2e-3, 1e-3, 5e-3)),
+    TrainMethod("atf", "atf", "ATFModel", DET_KEYS + DA_KEYS,
+                ("source", "ancillary source", "target", "ancillary raw"),
+                ("source", "ancillary source", "target"), 1,
+                (1e-3, 5e-4, 5e-3), target_post_train=True),
+    TrainMethod("pt_maf", "pt_maf", "PTMAFModel",
+                DET_KEYS + DA_KEYS + ("kd_loss",),
+                ("source", "target", "teacher"), ("source", "target"), 1,
+                (2e-3, 5e-5, 5e-3), teacher=True),
+)
 
 
 def make_train_batch(h, w, domain, seed, cfg, device):
@@ -1092,19 +1216,20 @@ def make_train_batch(h, w, domain, seed, cfg, device):
             "domain": torch.tensor([domain], device=device)}
 
 
-def train_phase(cfg, seed, out_dir):
-    """Full-width DAF train steps at 600x1200 through ``train_step``; the
-    RoIAlignAvg backward held to autograd through the plain version on the
-    step's own tensors; one step card vs CPU; a profile of one step.
-    Returns (kernel entries, summary)."""
+def train_phase(spec, cfg, seed, out_dir):
+    """Full-width train steps of the method ``spec`` at 600x1200 through
+    ``train_step``; both RoIAlignAvg kernels and the proposal NMS held to
+    their plain versions on the step's own tensors; one step card vs CPU on
+    each of ``spec.ref_pairs`` noise pairs; a profile of one step. Returns
+    (kernel entries, summary)."""
     import torch
-    from tllod_torch.methods.daf import DAFModel, daf_loss
     from tllod_torch.ops import _kernels
     from tllod_torch.train import train_step
     from tllod_torch.utils.optim import SGD, epoch_decay_schedule
 
     dev = torch.device("cuda")
-    model = DAFModel(len(CLASSES), cfg, TRAIN_NET, device=dev, seed=seed)
+    tag = spec.tag
+    model, extra = spec.build(cfg, seed, dev)
     src = make_train_batch(*TRAIN_HW, 1, seed + 10, cfg, dev)
     tgt = make_train_batch(*TRAIN_HW, 0, seed + 11, cfg, dev)
     # lr 0.002, momentum 0.9, decay 5e-4, bias x2, clip 10 (vgg16); one
@@ -1115,20 +1240,25 @@ def train_phase(cfg, seed, out_dir):
     n_params = sum(p.numel() for p in model.parameters())
     n_train = sum(p.numel() for p in opt.named_params().values())
     t = cfg.TRAIN
-    log(f"[train] DAF {TRAIN_NET} {n_params} params ({n_train} trained), "
+    t_post = (t.RPN_POST_NMS_TOP_N if spec.target_post_train
+              else cfg.TEST.RPN_POST_NMS_TOP_N)
+    log(f"[{tag}] {spec.name.upper().replace('_', '-')} {TRAIN_NET} "
+        f"{n_params} params ({n_train} trained), "
         f"1+1 images {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_GT} gt each, "
         f"TRAIN {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} rois, "
         f"{t.BATCH_SIZE} sampled, TEST {cfg.TEST.RPN_PRE_NMS_TOP_N}->"
-        f"{cfg.TEST.RPN_POST_NMS_TOP_N}")
+        f"{t_post}"
+        + "".join(f", frozen teacher {sum(p.numel() for p in e.parameters())}"
+                  f" params (seed {seed + TEACHER_SEED})" for e in extra))
 
     def step(i):
-        return train_step(model, daf_loss, opt, (src, tgt), seed=seed,
-                          step=i)
+        return train_step(model, spec.loss, opt, (src, tgt, *extra),
+                          seed=seed, step=i)
 
     # card against CPU at the seeded weights, TF32 off
-    ref_errs = check_train_reference(model, cfg, seed)
+    ref_errs = check_train_reference(spec, model, extra, cfg, seed)
     torch.backends.cudnn.allow_tf32 = True          # the defaults, as eval
-    log(f"[train] tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+    log(f"[{tag}] tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     for i in range(TRAIN_WARMUP):
         step(i)
@@ -1144,56 +1274,62 @@ def train_phase(cfg, seed, out_dir):
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m)
     launches = dict(_kernels.launches)
-    log(f"[train] launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] launches {launches}")
     for name in ("roi_align_avg", "roi_align_avg_backward", "nms"):
         if launches.get(name, 0) < 1:
-            raise RuntimeError(f"train path never launched kernel {name}")
+            raise RuntimeError(f"{spec.name} train path never launched "
+                               f"kernel {name}")
     if launches.get("roi_align_avg_grad_copy", 0):
-        raise RuntimeError("the RoIAlignAvg backward copied the output "
-                           "gradient on the train path")
+        raise RuntimeError(f"the RoIAlignAvg backward copied the output "
+                           f"gradient on the {spec.name} train path")
     for i, m in enumerate(metrics):
         vals = {k: float(v) for k, v in m.items()}
-        if set(vals) != set(LOSS_KEYS) | {"loss", "fg_cnt"}:
-            raise RuntimeError(f"train step metrics {sorted(vals)}")
+        if set(vals) != set(spec.loss_keys) | {"loss", "fg_cnt"}:
+            raise RuntimeError(f"{spec.name} train step metrics "
+                               f"{sorted(vals)}")
         if not all(np.isfinite(v) for v in vals.values()):
-            raise RuntimeError(f"non-finite train metrics at step {i}: "
-                               f"{vals}")
-        log(f"[train] step {TRAIN_WARMUP + i}: {times[i]:.3f} ms | "
-            + ", ".join(f"{k} {vals[k]:.5f}" for k in LOSS_KEYS)
+            raise RuntimeError(f"non-finite {spec.name} train metrics at "
+                               f"step {i}: {vals}")
+        log(f"[{tag}] step {TRAIN_WARMUP + i}: {times[i]:.3f} ms | "
+            + ", ".join(f"{k} {vals[k]:.5f}" for k in spec.loss_keys)
             + f", loss {vals['loss']:.5f}, fg_cnt {vals['fg_cnt']:.0f}")
     ms = float(np.median(times))
-    log(f"[train] {ms:.3f} ms/step (median of {TRAIN_STEPS} steps), "
+    log(f"[{tag}] {ms:.3f} ms/step (median of {TRAIN_STEPS} steps), "
         f"{2000.0 / ms:.2f} images/s (2 per step), peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"{peak:.2f} GiB")
 
-    busy, top, copies = _profile_train_step(
+    busy, wall, top, kinds, copies = _profile_train_step(
         step, TRAIN_WARMUP + TRAIN_STEPS, out_dir, cfg.POOLING_SIZE,
-        model.detector.dout_base_model)
+        model.detector.dout_base_model, spec)
     torch.backends.cudnn.allow_tf32 = False
-    log("[train] cudnn.allow_tf32=False for the checks")
-    calls, nms_calls = _capture_train(model, src, tgt)
-    entries = _backward_parity(calls, launches)
+    log(f"[{tag}] cudnn.allow_tf32=False for the checks")
+    calls, nms_calls = _capture_train(spec, model, extra, src, tgt)
+    entries = _backward_parity(spec, calls, launches)
     copy_ms = sum(ms for _, _, ms in copies)
     for e in entries:
         if e["name"].startswith("roi_align"):
             e["layout_copy_ms"] = copy_ms
-    for label, (boxes, scores, kw) in zip(("train source", "train target"),
-                                          nms_calls):
-        entries.append(_nms_entry(label, boxes, scores, kw,
+    prefix = "train" if spec.name == "daf" else f"{spec.name} train"
+    for site, (boxes, scores, kw) in zip(spec.nms_sites, nms_calls):
+        entries.append(_nms_entry(f"{prefix} {site}", boxes, scores, kw,
                                   launches.get("nms", 0)))
     summary = {"ms_per_step": ms, "step_ms": times,
                "images_per_s": 2000.0 / ms, "busy_ms": busy,
+               "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
+               "peak_memory_gib": peak,
                "launches": launches, "card_vs_cpu": ref_errs,
                "top_kernels": top, "layout_copy_ms": copy_ms,
                "layout_copies": copies}
     return entries, summary
 
 
-def _profile_train_step(step, i, out_dir, pool, channels):
-    """One profiled train step: the device breakdown, and the layout copies
-    around the RoIAlignAvg kernels: the copy kernels of every op that takes
-    a tensor of the pooled shapes, (R, P, P, C) or (R, C, P, P) with P =
-    ``pool`` and C = ``channels``, as (op, shapes, device ms)."""
+def _profile_train_step(step, i, out_dir, pool, channels, spec):
+    """One profiled train step: the device breakdown (busy ms, wall ms, top
+    kernels, ms by kind), and the layout copies around the RoIAlignAvg
+    kernels: the copy kernels of every op that takes a tensor of the pooled
+    shapes, (R, P, P, C) or (R, C, P, P) with P = ``pool`` and C =
+    ``channels``, as (op, shapes, device ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1205,16 +1341,16 @@ def _profile_train_step(step, i, out_dir, pool, channels):
         step(i + 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy, top = _device_breakdown(prof, wall_ms, "train step",
-                                  os.path.join(out_dir,
-                                               "chip_smoke_train_trace.json"))
-    copies = _layout_copies(os.path.join(out_dir,
-                                         "chip_smoke_train_trace.json"), pool,
-                            channels)
+    name = "train" if spec.name == "daf" else f"{spec.name}_train"
+    trace = os.path.join(out_dir, f"chip_smoke_{name}_trace.json")
+    busy, top, kinds = _device_breakdown(
+        prof, wall_ms, "train step" if spec.name == "daf"
+        else f"{spec.name} train step", trace)
+    copies = _layout_copies(trace, pool, channels)
     log(f"[profile] layout copies around RoIAlignAvg: "
         f"{sum(ms for _, _, ms in copies):.4f} ms in {len(copies)} ops: "
         + "; ".join(f"{n} {sh} {ms:.4f} ms" for n, sh, ms in copies))
-    return busy, top, copies
+    return busy, wall_ms, top, kinds, copies
 
 
 def _layout_copies(trace_path, pool, channels):
@@ -1254,16 +1390,15 @@ def _layout_copies(trace_path, pool, channels):
     return copies
 
 
-def _capture_train(model, src, tgt):
+def _capture_train(spec, model, extra, src, tgt):
     """One forward and backward of the train path with ``roi_align_avg``
     wrapped to record (map, RoIs, kwargs) and the gradient that reaches its
     output, and the proposal layer's NMS wrapped to record its problems; no
-    update. Returns the RoIAlignAvg records and the NMS problems (boxes,
-    scores, kwargs), one of each per domain (source, target)."""
-    import torch
+    update. Returns the RoIAlignAvg records, one per ``spec.roi_sites``,
+    and the NMS problems (boxes, scores, kwargs), one per
+    ``spec.nms_sites``."""
     import tllod_torch.models.faster_rcnn as frcnn
     import tllod_torch.models.rpn as rpn
-    from tllod_torch.methods.daf import daf_loss
     from tllod_torch.train import StepRandom
 
     calls, nms_calls = [], []
@@ -1277,27 +1412,32 @@ def _capture_train(model, src, tgt):
     def wrapped(feat, rois, **kw):
         out = saved(feat, rois, **kw)
         rec = {"feat": feat.detach().clone(), "rois": rois.clone(), "kw": kw}
-        out.register_hook(lambda g: rec.__setitem__("grad", g.clone()))
+        if out.requires_grad:                # not the teacher's
+            out.register_hook(lambda g: rec.__setitem__("grad", g.clone()))
         calls.append(rec)
         return out
 
     frcnn.roi_align_avg, rpn.nms_fixed_batched = wrapped, nms
-    hook = model.detector.head.register_forward_pre_hook(_flatten_is_view)
+    hooks = [m.detector.head.register_forward_pre_hook(_flatten_is_view)
+             for m in (model,)] + [
+        t.head.register_forward_pre_hook(_flatten_is_view) for t in extra]
     try:
-        out = model(src, tgt, training=True,
+        out = model(src, tgt, *extra, training=True,
                     rng=StepRandom(0, 10 ** 6, src["im_data"].device))
-        daf_loss(out).backward()
+        spec.loss(out).backward()
     finally:
         frcnn.roi_align_avg, rpn.nms_fixed_batched = saved, saved_nms
-        hook.remove()
+        for h in hooks:
+            h.remove()
     for p in model.parameters():
         p.grad = None
-    if len(calls) != 2 or not all("grad" in c for c in calls):
-        raise RuntimeError("train path: expected two RoIAlignAvg calls with "
-                           "gradients")
-    if len(nms_calls) != 2:
-        raise RuntimeError(f"train path: expected two proposal NMS calls, "
-                           f"got {len(nms_calls)}")
+    want = [site != "teacher" for site in spec.roi_sites]
+    if [("grad" in c) for c in calls] != want:
+        raise RuntimeError(f"{spec.name} train path: expected RoIAlignAvg "
+                           f"calls {spec.roi_sites}, got {len(calls)}")
+    if len(nms_calls) != len(spec.nms_sites):
+        raise RuntimeError(f"{spec.name} train path: expected proposal NMS "
+                           f"calls {spec.nms_sites}, got {len(nms_calls)}")
     return calls, nms_calls
 
 
@@ -1311,7 +1451,8 @@ def _plain_forward(feat_shape, rois, kw):
     return roi_align_avg_plain(f, rois, **kw), f
 
 
-def _backward_entry(label, feat_shape, rois, grad, kw, dtype, launches):
+def _backward_entry(label, feat_shape, rois, grad, kw, dtype, launches,
+                    tag="train"):
     """The backward kernel on the train path's own output gradient, checked
     in both layouts (``_backward_check``), timed in the (R, C, P, P) layout
     that fc6's flatten hands back."""
@@ -1343,46 +1484,52 @@ def _backward_entry(label, feat_shape, rois, grad, kw, dtype, launches):
                tolerance={"atol": atol, "rtol": rtol}, max_abs_want=scale,
                wrapper_ms=w_ms, kernel_ms_rppc=k0_ms,
                **roi_reuse_stats(feat_shape, rois, p, kw["spatial_scale"]))
-    log(f"[train-parity] roi_align_avg_backward {e['shape']}: max err "
+    log(f"[{tag}-parity] roi_align_avg_backward {e['shape']}: max err "
         f"{err:.3g} (max |want| {scale:.3g}, both layouts), kernel "
         f"{k_ms:.4f} ms ((R,P,P,C) {k0_ms:.4f}; wrapper {w_ms:.4f}), plain "
         f"{p_ms:.4f} ms, bound {e['bound_ms']:.4f} ms")
     return e
 
 
-def _backward_parity(calls, launches):
+def _backward_parity(spec, calls, launches):
     """Both RoIAlignAvg kernels on the train path's own tensors, each with
-    its launch count from the timed steps."""
+    its launch count from the timed steps: the forward at every site, the
+    backward where a gradient reached the output (not the teacher's)."""
     import torch
 
+    prefix = "train" if spec.name == "daf" else f"{spec.name} train"
     entries = []
-    for label, rec in zip(("source", "target"), calls):
+    for site, rec in zip(spec.roi_sites, calls):
         entries.append(_roi_align_entry(
             rec["feat"], rec["rois"], rec["kw"], torch.float32,
-            launches.get("roi_align_avg", 0)))
-        entries[-1]["shape"] = f"train {label}: {entries[-1]['shape']}"
+            launches.get("roi_align_avg", 0), label=f"{prefix} {site}"))
+        if "grad" not in rec:
+            continue
+        label = site if spec.name == "daf" else f"{spec.name} {site}"
         entries.append(_backward_entry(label, tuple(rec["feat"].shape),
                                        rec["rois"], rec["grad"], rec["kw"],
                                        torch.float32,
                                        launches.get("roi_align_avg_backward",
-                                                    0)))
-    # the train path runs float32 only: the bf16 variant has no launches
-    rec = calls[0]
-    entries.append(_backward_entry("source", tuple(rec["feat"].shape),
-                                   rec["rois"], rec["grad"], rec["kw"],
-                                   torch.bfloat16, 0))
+                                                    0), spec.tag))
+    if spec.name == "daf":
+        # the train path runs float32 only: the bf16 variant has no launches
+        rec = calls[0]
+        entries.append(_backward_entry("source", tuple(rec["feat"].shape),
+                                       rec["rois"], rec["grad"], rec["kw"],
+                                       torch.bfloat16, 0))
     return entries
 
 
 def _train_hooks(m, record_terms: bool):
     """Forward hooks on ``m`` that record, per call: the sign of every
     ReLU-fed pre-activation (``signs``, on the CPU) and the ``ins_da``
-    probabilities (``probs``); with ``record_terms``, for every trained
+    probabilities (``probs``) of a sigmoid head (DAF's, ATF's); with ``record_terms``, for every trained
     bias, the sums over rows and positions of ∂L/∂out and of |∂L/∂out| per
     channel: the signed sum of its gradient's terms, and of their
     magnitudes (``terms[key] = [signed, magnitude]``). Returns (records,
     hook handles)."""
     from torch import nn
+    from tllod_torch.methods.da_modules import InstanceDA
 
     rec = {"signs": {}, "probs": [], "terms": {}}
     handles = []
@@ -1409,22 +1556,24 @@ def _train_hooks(m, record_terms: bool):
                 ch_dim=1 if isinstance(mod, nn.Conv2d) else -1):
             if relu:      # before the in-place ReLU that follows the conv
                 rec["signs"].setdefault(name, []).append((out > 0).cpu())
-            if biased:
+            if biased and out.requires_grad:  # not under no_grad
                 out.register_hook(add_terms(name + ".bias", ch_dim))
         handles.append(mod.register_forward_hook(fwd))
-    handles.append(m.ins_da.register_forward_hook(
-        lambda mod, inp, out: rec["probs"].append(
-            out.detach().float().cpu())))
+    if isinstance(m.ins_da, InstanceDA):         # sigmoid probabilities
+        handles.append(m.ins_da.register_forward_hook(
+            lambda mod, inp, out: rec["probs"].append(
+                out.detach().float().cpu())))
     return rec, handles
 
 
-def _train_reference_pair(model, cpu, cfg, seed, k):
-    """Pair ``k``: one DAF train step on a REF_HW pair of noise images on
-    the card and on the CPU, with the CPU fed the card's random draws and
-    proposals. Returns its readings; raises if fg_cnt or a loss differs."""
+def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
+                          k):
+    """Pair ``k``: one train step of ``spec`` on a REF_HW pair of noise
+    images on the card and on the CPU (PT-MAF's teacher copied there too),
+    with the CPU fed the card's random draws and proposals. Returns its
+    readings; raises if fg_cnt or a loss differs."""
     import torch
     import tllod_torch.models.faster_rcnn as frcnn
-    from tllod_torch.methods.daf import daf_loss
     from tllod_torch.train import StepRandom
 
     s = seed + 20 + 3 * k
@@ -1453,9 +1602,10 @@ def _train_reference_pair(model, cpu, cfg, seed, k):
     outs, grads, recs = {}, {}, {}
     rng = StepRandom(seed, k, "cuda")
     for name, m, fn, r, batch in (
-            ("card", model, record, rng, (src, tgt)),
+            ("card", model, record, rng, (src, tgt, *extra)),
             ("cpu", cpu, replay, None,
-             tuple({k: v.cpu() for k, v in b.items()} for b in (src, tgt)))):
+             tuple({k: v.cpu() for k, v in b.items()} for b in (src, tgt))
+             + cpu_extra)):
         if r is None:
             r = StepRandom(seed, k, "cpu",
                            replay=[u.cpu() for u in rng.drawn])
@@ -1463,13 +1613,13 @@ def _train_reference_pair(model, cpu, cfg, seed, k):
         frcnn.proposal_layer = fn
         try:
             out = m(*batch, training=True, rng=r)
-            loss = daf_loss(out)
+            loss = spec.loss(out)
             loss.backward()
         finally:
             frcnn.proposal_layer = saved
             for h in handles:
                 h.remove()
-        outs[name] = {key: out[key].item() for key in LOSS_KEYS}
+        outs[name] = {key: out[key].item() for key in spec.loss_keys}
         outs[name]["loss"] = loss.item()
         outs[name]["fg_cnt"] = int((out["rois_label"] > 0).sum())
         grads[name] = {key: p.grad.detach().cpu()
@@ -1538,7 +1688,7 @@ def _train_reference_pair(model, cpu, cfg, seed, k):
         "relu_flips": relu_flips, "relu_units": relu_units,
         "clip_flips": clip_flips, "clip_rows": clip_rows,
         "clip_rows_cpu": clip_cpu}
-    log(f"[train-reference] pair {k} {REF_HW[0]}x{REF_HW[1]}, fg_cnt "
+    log(f"[{spec.tag}-reference] pair {k} {REF_HW[0]}x{REF_HW[1]}, fg_cnt "
         f"{reading['fg_cnt']}: losses max rel err "
         f"{reading['loss_rel_err']:.3g}; gradients of {len(err)} "
         f"parameters, rel err {reading['grad_rel_err']:.3g} overall, median "
@@ -1553,9 +1703,10 @@ def _train_reference_pair(model, cpu, cfg, seed, k):
     return reading
 
 
-def check_train_reference(model, cfg, seed):
-    """REF_PAIRS DAF train steps, each on its own REF_HW pair of noise
-    images, card against CPU: the same weights, the card's random draws
+def check_train_reference(spec, model, extra, cfg, seed):
+    """``spec.ref_pairs`` train steps (DAF: REF_PAIRS), each on its own
+    REF_HW pair of noise images, card against CPU: the same weights (PT-MAF's
+    teacher's too), the card's random draws
     replayed on the CPU (sampling priorities, dropout masks), and the
     card's proposals fed to the CPU pass (the proposal layer is compared
     stage by stage in phase 3, and a box one ulp apart may flip an NMS
@@ -1563,27 +1714,26 @@ def check_train_reference(model, cfg, seed):
 
     Per pair: fg_cnt equal; each loss within 1e-4 relative + 1e-5
     absolute (a saturated domain loss near 0 carries its logits' absolute
-    error). Gradients: all parameters together within REF_GRAD_TOTAL of
-    the CPU's norm; each parameter's error relative to its own gradient, a
-    bias's relative to the sum of its terms' magnitudes, the median within
-    REF_GRAD_MEDIAN and the worst within REF_GRAD_LEAF. Every pair's
-    readings are printed before any limit is applied, with the counts of
-    ReLU sign flips and BCE clip crossings between the two sides."""
-    from tllod_torch.methods.daf import DAFModel
-
-    cpu = DAFModel(model.detector.num_classes, cfg, TRAIN_NET, device="cpu")
-    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    readings = [_train_reference_pair(model, cpu, cfg, seed, k)
-                for k in range(REF_PAIRS)]
+    error). Gradients (``spec.limits``): all parameters together within
+    the first limit of the CPU's norm; each parameter's error relative to
+    its own gradient, a bias's relative to the sum of its terms'
+    magnitudes, the median within the second and the worst within the
+    third. Every pair's readings are printed before any limit is applied,
+    with the counts of ReLU sign flips and BCE clip crossings between the
+    two sides."""
+    cpu, cpu_extra = spec.cpu_copy(model, extra)
+    readings = [_train_reference_pair(spec, model, extra, cpu, cpu_extra,
+                                      cfg, seed, k)
+                for k in range(spec.ref_pairs)]
+    total, median, leaf = spec.limits
     for r in readings:
-        if (r["grad_rel_err"] > REF_GRAD_TOTAL
-                or r["grad_rel_err_median"] > REF_GRAD_MEDIAN
-                or r["grad_rel_err_worst"][0][1] > REF_GRAD_LEAF):
+        if (r["grad_rel_err"] > total or r["grad_rel_err_median"] > median
+                or r["grad_rel_err_worst"][0][1] > leaf):
             raise RuntimeError(
-                f"train reference pair {r['pair']}: gradients off by "
-                f"{r['grad_rel_err']} overall (limit {REF_GRAD_TOTAL}), "
-                f"median {r['grad_rel_err_median']} ({REF_GRAD_MEDIAN}), "
-                f"worst {r['grad_rel_err_worst']} ({REF_GRAD_LEAF})")
+                f"{spec.name} train reference pair {r['pair']}: gradients "
+                f"off by {r['grad_rel_err']} overall (limit {total}), "
+                f"median {r['grad_rel_err_median']} ({median}), "
+                f"worst {r['grad_rel_err_worst']} ({leaf})")
     return readings
 
 

@@ -4,6 +4,7 @@ package, and imports without ``cv2``, ``PIL`` and ``yaml``.
 The check runs in a fresh interpreter, because this test process has JAX
 loaded already (``tests/conftest.py``)."""
 
+import ast
 import glob
 import os
 import re
@@ -21,9 +22,15 @@ import tllod_torch
 for m in pkgutil.walk_packages(tllod_torch.__path__, "tllod_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+print(sorted(m for m in sys.modules if m.startswith("tllod_torch.")))
 roots = {{m.split(".")[0] for m in set(sys.modules) - before}}
 print(sorted(roots & set({FORBIDDEN!r} + {LAZY!r})))
 """
+# the modules of the MAF, ATF and PT-MAF slice, which the walk must reach
+SLICE = ("tllod_torch.methods.maf", "tllod_torch.methods.atf",
+         "tllod_torch.methods.pt_maf", "tllod_torch.cli.da_runner",
+         "tllod_torch.cli.maf_train", "tllod_torch.cli.atf_train",
+         "tllod_torch.cli.pt_maf_train")
 
 
 def test_port_and_chip_smoke_import_no_jax_nor_heavy_io():
@@ -31,7 +38,9 @@ def test_port_and_chip_smoke_import_no_jax_nor_heavy_io():
     res = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+    walked, bad = res.stdout.strip().splitlines()[-2:]
+    assert set(SLICE) <= set(ast.literal_eval(walked)), walked
+    assert bad == "[]", res.stdout
 
 
 def test_port_sources_have_no_jax_import():

@@ -1,0 +1,120 @@
+"""The generic two-stream (source + target) DA train loop
+(``methods/da_runner.py:31-174``). Each method's train CLI is a thin
+wrapper that names its model, its loss and its extra flags.
+
+Not ported from the JAX runner, and raising in
+:func:`tllod_torch.cli.common.check_train_args`: several processes,
+``--fuse_steps`` and ``--profile``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from tllod_torch.cli.common import (DATASET_MAP, MetricLogger,
+                                    check_train_args, resolve_config)
+from tllod_torch.data.loader import DetectionLoader
+from tllod_torch.data.roidb import combined_roidb
+from tllod_torch.train import train_step
+from tllod_torch.utils.checkpoint import resume_train_state, save_checkpoint
+from tllod_torch.utils.optim import build_optimizer
+from tllod_torch.zoo import load_pretrained_backbone
+
+
+def _to_device(batch, device):
+    return {k: torch.from_numpy(v).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def run_da_training(method_name: str, model_ctor: Callable,
+                    loss_builder: Callable, args, *,
+                    extra_model_kwargs: Optional[dict] = None,
+                    extra_backbone_subtrees: Sequence[str] = (),
+                    step_inputs: Optional[Callable] = None,
+                    meta: Optional[dict] = None) -> int:
+    """Train ``model_ctor(num_classes, cfg, net, class_agnostic, device=,
+    seed=, **extra_model_kwargs)`` on the dataset's source and target
+    loaders with ``loss_builder(args)(out)``; returns the last step reached.
+
+    The detector's backbone and head start from ``vgg16_caffe.pth`` when it
+    is there (:func:`tllod_torch.zoo.load_pretrained_backbone`), and so do
+    the bare backbones named in ``extra_backbone_subtrees``.
+    ``step_inputs(model)``, called once after that, gives extra positional
+    arguments passed to the model every step after ``(src, tgt)`` (PT-MAF's
+    teacher). Checkpoints go to ``<save_dir>/<net>/<dataset>/<method_name>_
+    <session>_<epoch>_<step>.pth``, with ``meta`` added to theirs."""
+    check_train_args(args)
+    print("Called with args:", args)
+    cfg = resolve_config(args)
+    np.random.seed(cfg.RNG_SEED)
+
+    ds = DATASET_MAP[args.dataset]
+    s_ds, s_roidb, _, _ = combined_roidb(ds["s_imdb"])
+    _, t_roidb, _, _ = combined_roidb(ds["t_imdb"])
+    print(f"source {len(s_roidb)} target {len(t_roidb)} roidb entries")
+    s_loader = DetectionLoader(s_roidb, cfg, batch_size=args.batch_size,
+                               domain=1, seed=cfg.RNG_SEED,
+                               num_workers=args.num_workers)
+    t_loader = DetectionLoader(t_roidb, cfg, batch_size=args.batch_size,
+                               domain=0, seed=cfg.RNG_SEED + 1,
+                               num_workers=args.num_workers)
+
+    model = model_ctor(s_ds.num_classes, cfg, args.net, args.class_agnostic,
+                       device=args.device, seed=cfg.RNG_SEED,
+                       **(extra_model_kwargs or {}))
+    load_pretrained_backbone(model.detector, args.net)
+    for sub in extra_backbone_subtrees:
+        # ATF's ancillary branch starts as a copy of the pretrained
+        # backbone (reference lib/ATF/vgg16.py:48 deepcopy)
+        load_pretrained_backbone(getattr(model, sub), args.net)
+    extra = tuple(step_inputs(model)) if step_inputs else ()
+    steps_per_epoch = min(len(s_loader), len(t_loader))
+    schedule, opt = build_optimizer(args, cfg, model, steps_per_epoch)
+    loss_fn = loss_builder(args)
+
+    output_dir = os.path.join(args.save_dir, args.net, args.dataset)
+    os.makedirs(output_dir, exist_ok=True)
+    step = 0
+    if args.resume:
+        path = os.path.join(output_dir, f"{method_name}_{args.checksession}_"
+                            f"{args.checkepoch}_{args.checkpoint}.pth")
+        ckpt_epoch, step = resume_train_state(model, opt, path)
+        args.start_epoch = ckpt_epoch + 1
+        print(f"resumed from {path} (epoch {ckpt_epoch}, step {step})")
+
+    logger = MetricLogger(args.disp_interval, jsonl_path=(
+        os.path.join(output_dir, "metrics.jsonl") if args.use_tfboard
+        else None))
+    s_it, t_it = iter(s_loader), iter(t_loader)
+    try:
+        for epoch in range(args.start_epoch, args.max_epochs + 1):
+            todo = steps_per_epoch
+            if args.max_steps:
+                todo = min(todo, max(0, args.max_steps - step))
+            for _ in range(todo):
+                src = _to_device(next(s_it), model.device)
+                tgt = _to_device(next(t_it), model.device)
+                metrics = train_step(model, loss_fn, opt, (src, tgt, *extra),
+                                     seed=cfg.RNG_SEED, step=step)
+                step += 1
+                logger.update(step, epoch, schedule(step - 1), metrics)
+            done = ((args.max_steps and step >= args.max_steps)
+                    or epoch == args.max_epochs)
+            if done or epoch % max(1, args.save_epoch_interval) == 0:
+                path = os.path.join(output_dir, f"{method_name}_"
+                                    f"{args.session}_{epoch}_{step}.pth")
+                save_checkpoint(path, model=model, optimizer=opt, step=step,
+                                epoch=epoch, session=args.session,
+                                meta={"pooling_mode": cfg.POOLING_MODE,
+                                      "class_agnostic": args.class_agnostic,
+                                      "net": args.net, **(meta or {})})
+                print(f"saved checkpoint for epoch {epoch}: {path}")
+            if done:
+                break
+    finally:
+        logger.close()
+    return step

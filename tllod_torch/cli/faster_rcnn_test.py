@@ -7,9 +7,10 @@
         --net vgg16 --load_name weights.pt [--eval_bs 4] [--device cpu]
 
 ``--load_name`` takes a port state dict (``torch.save(model.state_dict())``,
-``.pt``), a train checkpoint of ``tllod_torch.cli.daf_train`` (``.pth``,
-whose ``detector`` subset is loaded, as ``methods/da_runner.py:210-211``
-does), or an ``.npz`` of flattened JAX params whose keys are the flax paths
+``.pt``), a train checkpoint of any of the port's train CLIs (``daf_train``,
+``maf_train``, ``atf_train``, ``pt_maf_train``; ``.pth``, whose ``detector``
+subset is loaded, as ``methods/da_runner.py:210-211`` does), or an ``.npz``
+of flattened JAX params whose keys are the flax paths
 (``backbone/conv1_1/kernel``, ...); method-only subtrees are dropped.
 """
 

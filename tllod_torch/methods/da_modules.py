@@ -10,6 +10,8 @@ onto the other name for name.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -22,7 +24,8 @@ from tllod_torch.ops.losses import binary_cross_entropy
 class ImageDA(nn.Module):
     """Pixel-wise 2-class domain head: GRL → 1×1 conv (hidden) → ReLU → 1×1
     conv (2), both bias-free. Takes the NHWC map, returns (B, H, W, 2)
-    logits."""
+    logits. ``grl_scale`` multiplies the GRL's α (a tensor under PT-MAF);
+    MAF's ``ImageDAPlain`` (``maf.py:71``) is this head."""
 
     def __init__(self, in_channels: int = 512, hidden: int = 512,
                  alpha: float = 0.1, device=None):
@@ -32,8 +35,8 @@ class ImageDA(nn.Module):
                                device=device)
         self.conv2 = nn.Conv2d(hidden, 2, 1, bias=False, device=device)
 
-    def forward(self, feat: torch.Tensor) -> torch.Tensor:
-        x = grad_reverse(feat, self.alpha).permute(0, 3, 1, 2)
+    def forward(self, feat: torch.Tensor, grl_scale=1.0) -> torch.Tensor:
+        x = grad_reverse(feat, self.alpha * grl_scale).permute(0, 3, 1, 2)
         x = self.conv2(F.relu(self.conv1(x)))
         return x.permute(0, 2, 3, 1)
 
@@ -91,13 +94,68 @@ def blocked_instance_labels(domain: torch.Tensor, total_rows: int,
     return torch.where(rows < d.shape[0], picked, 0.0)[:, None]
 
 
-def features_pair(det, src_im: torch.Tensor, tgt_im: torch.Tensor):
-    """Backbone maps of a (source, target) pair: one batched pass over
-    ``[src; tgt]`` when the shapes match, else two. Every backbone op is per
-    image, so both give the same maps; each half of the fused NHWC map stays
-    contiguous."""
+@torch.no_grad()
+def init_da_heads(heads, seed: int, device) -> None:
+    """He-normal weights and zero biases for every conv and fc of the
+    modules ``heads``, drawn from a generator seeded with ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    for head in heads:
+        for m in head.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                nn.init.normal_(m.weight, 0.0,
+                                math.sqrt(2.0 / m.weight[0].numel()),
+                                generator=g)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+
+
+def fused_box_head(det, pooled, *, deterministic: bool, rng):
+    """One fc6/fc7 pass over several (R, P, P, C) RoI sets, split back into
+    one fc7 block per set: the fc6 weight and its gradient stream once per
+    step instead of once per set. The cat is taken in the (R, C, P, P) order
+    fc6 flattens in, which is the RoIAlign kernel's own layout on the card:
+    the cat is the only copy, and its backward hands each set a contiguous
+    (R, C, P, P) gradient. Dropout masks are drawn once, over all rows."""
+    sizes = [p.shape[0] for p in pooled]
+    cat = torch.cat([p.permute(0, 3, 1, 2) for p in pooled], dim=0)
+    fc7 = det.box_head(cat.permute(0, 2, 3, 1), deterministic=deterministic,
+                       rng=rng)
+    return fc7.split(sizes)
+
+
+def source_target_pass(det, src, tgt, *, training: bool, rng,
+                       return_taps: bool = False):
+    """The detector pass DAF, MAF and PT-MAF share: backbone maps (or
+    taps) of the pair, the supervised source pre-head, the unsupervised
+    target pre-head (RPN under the TEST config), one fc6/fc7 pass over both
+    RoI sets. Returns (source maps, target maps, the source's finished
+    ``out``, the target's pre-head ``t_out``, the target's fc7)."""
+    s_feat, t_feat = features_pair(det, src["im_data"], tgt["im_data"],
+                                   return_taps=return_taps)
+    out, s_samples, s_pooled = det.forward_pre_head(
+        s_feat[-1] if return_taps else s_feat, src["im_info"],
+        src["gt_boxes"], training=training, rng=rng)
+    t_out, _, t_pooled = det.forward_pre_head(
+        t_feat[-1] if return_taps else t_feat, tgt["im_info"],
+        tgt["gt_boxes"], training=training, supervised=False, rng=rng)
+    fc7_s, fc7_t = fused_box_head(det, (s_pooled, t_pooled),
+                                  deterministic=not training, rng=rng)
+    return s_feat, t_feat, det.finish_head(out, s_samples, fc7_s), t_out, \
+        fc7_t
+
+
+def features_pair(det, src_im: torch.Tensor, tgt_im: torch.Tensor, *,
+                  return_taps: bool = False):
+    """Backbone maps of a (source, target) pair, or their (c3, c4, c5) taps
+    with ``return_taps``: one batched pass over ``[src; tgt]`` when the
+    shapes match, else two. Every backbone op is per image, so both give the
+    same maps; each half of a fused NHWC map stays contiguous."""
     if src_im.shape == tgt_im.shape:
         b = src_im.shape[0]
-        both = det.features(torch.cat([src_im, tgt_im], dim=0))
+        both = det.features(torch.cat([src_im, tgt_im], dim=0),
+                            return_taps=return_taps)
+        if return_taps:
+            return (tuple(t[:b] for t in both), tuple(t[b:] for t in both))
         return both[:b], both[b:]
-    return det.features(src_im), det.features(tgt_im)
+    return (det.features(src_im, return_taps=return_taps),
+            det.features(tgt_im, return_taps=return_taps))

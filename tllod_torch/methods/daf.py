@@ -17,7 +17,6 @@ Total loss (``methods/DAF/DAF_train.py:397-400``):
 
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -27,8 +26,9 @@ from torch import nn
 from tllod_torch.config import Config
 from tllod_torch.device import resolve_device
 from tllod_torch.methods.da_modules import (ImageDA, InstanceDA,
-                                            features_pair, image_da_loss,
-                                            instance_da_loss)
+                                            image_da_loss, init_da_heads,
+                                            instance_da_loss,
+                                            source_target_pass)
 from tllod_torch.models.faster_rcnn import FasterRCNN
 
 
@@ -54,19 +54,11 @@ class DAFModel(nn.Module):
             self.init_weights(seed)
         self.train()
 
-    @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         """The detector's init from ``seed``, then He-normal DA weights
         with zero biases."""
         self.detector.init_weights(seed)
-        g = torch.Generator(device=self.device).manual_seed(seed + 1)
-        for m in (*self.img_da.modules(), *self.ins_da.modules()):
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                nn.init.normal_(m.weight, 0.0,
-                                math.sqrt(2.0 / m.weight[0].numel()),
-                                generator=g)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
+        init_da_heads((self.img_da, self.ins_da), seed + 1, self.device)
 
     def _domain_terms(self, base_feat, fc7, domain, rois_per_image: int,
                       consistency_channel: int, deterministic: bool, rng):
@@ -84,28 +76,10 @@ class DAFModel(nn.Module):
         """``src``/``tgt``: dicts of device tensors ``im_data`` (B, H, W, 3),
         ``im_info``, ``gt_boxes``, ``domain``; ``rng`` a
         :class:`tllod_torch.train.StepRandom` when ``training``."""
-        det = self.detector
         deterministic = not training
-        s_feat, t_feat = features_pair(det, src["im_data"], tgt["im_data"])
-        out, s_samples, s_pooled = det.forward_pre_head(
-            s_feat, src["im_info"], src["gt_boxes"], training=training,
-            rng=rng)
-        t_out, _, t_pooled = det.forward_pre_head(
-            t_feat, tgt["im_info"], tgt["gt_boxes"], training=training,
-            supervised=False, rng=rng)
-        # one fc6/fc7 pass over [src RoIs; tgt RoIs]: the fc6 weight and its
-        # gradient stream once per step instead of twice. The cat is taken
-        # in the (R, C, P, P) order fc6 flattens in, which is the kernel's
-        # own layout on the card: the cat is the only copy, and its backward
-        # hands each domain a contiguous (R, C, P, P) gradient
-        ns = s_pooled.shape[0]
-        pooled = torch.cat([s_pooled.permute(0, 3, 1, 2),
-                            t_pooled.permute(0, 3, 1, 2)], dim=0)
-        fc7 = det.box_head(pooled.permute(0, 2, 3, 1),
-                           deterministic=deterministic, rng=rng)
-        fc7_s, fc7_t = fc7[:ns], fc7[ns:]
-        out = det.finish_head(out, s_samples, fc7_s)
-
+        _, t_feat, out, t_out, fc7_t = source_target_pass(
+            self.detector, src, tgt, training=training, rng=rng)
+        fc7_s = out["pooled_feat"]
         img_l, ins_l, cst_l = self._domain_terms(
             out["base_feat"], fc7_s, src["domain"], out["rois"].shape[1],
             consistency_channel=1, deterministic=deterministic, rng=rng)

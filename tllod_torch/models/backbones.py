@@ -16,7 +16,8 @@ Parameter names follow the flax tree (``conv1_1`` … ``conv5_3``, ``fc6``,
 ``fc7``), so :func:`tllod_torch.zoo.from_jax_params` maps one onto the other
 name for name. ``frozen_blocks=2`` freezes conv1-2 as ``backbones.py:69-70``
 does: the graph is cut after block 2 and those weights take no gradient.
-The c3/c4/c5 taps and ``stage_range`` come with MAF, ATF and IDF.
+``return_taps`` gives the c3/c4/c5 maps MAF, ATF and PT-MAF put their image
+discriminators on (``backbones.py:71-73``); ``stage_range`` comes with IDF.
 """
 
 from __future__ import annotations
@@ -39,17 +40,23 @@ class VGG16Features(nn.Module):
         super().__init__()
         self.frozen_blocks = frozen_blocks
         in_ch = 3
+        widths = []
         for bi, (ch, n_convs) in enumerate(_VGG_BLOCKS):
             ch = max(8, int(ch * width))
+            widths.append(ch)
             for ci in range(n_convs):
                 conv = nn.Conv2d(in_ch, ch, 3, padding=1, device=device)
                 conv.requires_grad_(bi >= frozen_blocks)
                 self.add_module(f"conv{bi + 1}_{ci + 1}", conv)
                 in_ch = ch
         self.out_channels = in_ch
+        self.tap_channels = tuple(widths[2:])          # c3, c4, c5
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, 3, H, W), NCHW; returns (B, C, H/16, W/16)."""
+    def forward(self, x: torch.Tensor, *, return_taps: bool = False):
+        """x: (B, 3, H, W), NCHW; returns (B, C, H/16, W/16), or with
+        ``return_taps`` the conv3_3, conv4_3 and conv5_3 outputs (c3, c4,
+        c5 at strides 4, 8, 16)."""
+        taps = []
         for bi, (_, n_convs) in enumerate(_VGG_BLOCKS):
             if bi > 0:
                 x = F.max_pool2d(x, 2, 2)
@@ -58,7 +65,9 @@ class VGG16Features(nn.Module):
                            inplace=True)
             if bi + 1 == self.frozen_blocks:
                 x = x.detach()
-        return x
+            if bi >= 2:
+                taps.append(x)
+        return tuple(taps) if return_taps else x
 
 
 def dropout(x: torch.Tensor, p: float, rng) -> torch.Tensor:

@@ -42,6 +42,17 @@ from tllod_torch.ops.losses import smooth_l1_loss, softmax_cross_entropy
 from tllod_torch.ops.roi_align import roi_align_avg
 
 
+def nhwc_features(backbone: nn.Module, im_data: torch.Tensor,
+                  return_taps: bool = False):
+    """Run a ``channels_last`` backbone on an NHWC image batch: the NCHW
+    view goes in, and each map comes back as its NHWC view, contiguous in
+    memory, so no layout copy is made either way."""
+    out = backbone(im_data.permute(0, 3, 1, 2), return_taps=return_taps)
+    if return_taps:
+        return tuple(t.permute(0, 2, 3, 1) for t in out)
+    return out.permute(0, 2, 3, 1)
+
+
 class FasterRCNN(nn.Module):
     """Shared detector. ``num_classes`` includes background (index 0).
 
@@ -101,11 +112,11 @@ class FasterRCNN(nn.Module):
 
     # ---- granular pieces (composed by DA method wrappers) ----
 
-    def features(self, im_data: torch.Tensor) -> torch.Tensor:
+    def features(self, im_data: torch.Tensor, return_taps: bool = False):
         """im_data (B, H, W, 3) NHWC BGR mean-subtracted → (B, H/16, W/16,
-        C) NHWC-contiguous feature map."""
-        x = im_data.permute(0, 3, 1, 2)          # NCHW, channels_last strides
-        return self.backbone(x).permute(0, 2, 3, 1)
+        C) NHWC-contiguous feature map, or with ``return_taps`` the (c3, c4,
+        c5) maps, each NHWC-contiguous."""
+        return nhwc_features(self.backbone, im_data, return_taps)
 
     def anchors_for(self, feat_h: int, feat_w: int) -> torch.Tensor:
         """(K*A, 4) anchors for a feature-grid size, made once per size."""
@@ -142,7 +153,8 @@ class FasterRCNN(nn.Module):
             nms_thresh=rcfg.RPN_NMS_THRESH)
         zero = torch.zeros((), device=rois.device)
         out = {"rois": rois, "rois_valid": valid, "rpn_cls_prob": fg_prob,
-               "rpn_loss_cls": zero, "rpn_loss_box": zero}
+               "rpn_logits": logits, "rpn_loss_cls": zero,
+               "rpn_loss_box": zero}
         if not (training and compute_loss):
             return out
 
@@ -233,6 +245,7 @@ class FasterRCNN(nn.Module):
             "rpn_loss_cls": rpn_out["rpn_loss_cls"],
             "rpn_loss_box": rpn_out["rpn_loss_box"],
             "rpn_cls_prob": rpn_out["rpn_cls_prob"],
+            "rpn_logits": rpn_out["rpn_logits"],
             "rcnn_loss_cls": zero,
             "rcnn_loss_box": zero,
             "rois_label": None,

@@ -51,8 +51,13 @@ def binary_cross_entropy(probs: torch.Tensor, labels: torch.Tensor,
                          weights: Optional[torch.Tensor] = None,
                          eps: float = 1e-7) -> torch.Tensor:
     """Mean BCE on probabilities clipped to [eps, 1 - eps] (the reference's
-    ``nn.BCELoss`` on sigmoid outputs, ``lib/DAF/faster_rcnn.py:188``)."""
-    p = torch.clamp(probs.float(), eps, 1.0 - eps)
+    ``nn.BCELoss`` on sigmoid outputs, ``lib/DAF/faster_rcnn.py:188``).
+    The clip is ``jnp.clip``'s max-then-min, whose gradient is halved where
+    a probability equals a bound (a sigmoid saturates onto 1 - 1e-7 in
+    float32); ``torch.clamp`` would pass it whole."""
+    p = probs.float()
+    p = torch.minimum(torch.maximum(p, torch.full_like(p, eps)),
+                      torch.full_like(p, 1.0 - eps))
     loss = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))
     if weights is None:
         return loss.mean()

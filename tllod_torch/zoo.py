@@ -55,13 +55,14 @@ def convert_vgg16(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_pretrained_backbone(detector: nn.Module, net: str,
+def load_pretrained_backbone(module: nn.Module, net: str,
                              path: Optional[str] = None) -> bool:
-    """Fill ``detector``'s backbone and head from ``vgg16_caffe.pth`` under
-    ``$TLLOD_PRETRAINED_DIR`` (default ``pretrained_model/``). A missing
-    file, or a net with no such file (``vgg16_thin``), keeps the random init
-    with a warning, as the JAX CLI does; returns whether weights were
-    loaded."""
+    """Fill a detector's backbone and head, or the convs of a bare
+    ``VGG16Features`` (ATF's ``backbone_anc``, as ``methods/da_runner.py:
+    87-91`` does), from ``vgg16_caffe.pth`` under ``$TLLOD_PRETRAINED_DIR``
+    (default ``pretrained_model/``). A missing file, or a net with no such
+    file (``vgg16_thin``), keeps the random init with a warning, as the JAX
+    CLI does; returns whether weights were loaded."""
     path = path or os.path.join(pretrained_dir(), f"{net}_caffe.pth")
     if net != "vgg16" or not os.path.exists(path):
         print(f"WARNING: pretrained weights not found at {path}; keeping "
@@ -70,12 +71,15 @@ def load_pretrained_backbone(detector: nn.Module, net: str,
     print(f"Loading pretrained weights from {path}")
     sd = convert_vgg16(torch.load(path, map_location="cpu",
                                   weights_only=True))
-    own = detector.state_dict()
+    own = module.state_dict()
+    if "backbone.conv1_1.weight" not in own:          # a bare backbone
+        sd = {k[len("backbone."):]: v for k, v in sd.items()
+              if k.startswith("backbone.")}
     for k, v in sd.items():
         if own[k].shape != v.shape:
             raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, the "
                              f"model {tuple(own[k].shape)}")
-    detector.load_state_dict(sd, strict=False)
+    module.load_state_dict(sd, strict=False)
     return True
 
 
