@@ -39,6 +39,9 @@ Phases, each ending the run nonzero on failure:
    plain version and ``nms_numpy``, with the time of each of its kernels
    (the sort of unsorted scores, the mask, the scan), the kept count and
    the 64-box tiles the scan went through.
+   The RoIPool kernel (``POOLING_MODE='pool'``, off the eval path) is held
+   to its plain version on the eval-batch-1 map and RoIs, float32
+   ``torch.equal``.
    Then adversarial NMS problems (N = 1, 63, 64, 65, 12000, 196608;
    max_output in the middle of a tile and above N; identical boxes; no
    overlaps; invalid scores, all or interleaved; tied scores; thresholds 0
@@ -70,7 +73,15 @@ Phases, each ending the run nonzero on failure:
    instance discriminator over the full 2000-row proposal sets, so
    RoIAlignAvg runs forward and backward at 2000 RoIs; PT-MAF's fg/bg
    discriminators and a frozen teacher (weights from ``--seed`` +
-   1000) whose RoIAlignAvg forward is held to the plain version too.
+   1000) whose RoIAlignAvg forward is held to the plain version too. Then
+   PA-ATF (``[pa_atf]``): ATF's branches, the partial-alignment image heads,
+   the target's sampled proposals and three CLUB heads on the 50 gt RoIs
+   pooled by RoIPool from c3/c4/c5, so the RoIPool forward and backward
+   kernels must each launch 3 times a step; both are held to the plain
+   version on each tap's own tensors and on a forced-tie map, and the
+   sampled proposal layer card against CPU on a problem whose NMS keeps
+   more than a quarter of postN; its card-vs-CPU pair runs at 320x640 (its
+   mask convolutions need a stride-16 map of 20 pixels a side).
    Prints one ``{"kernels": [...]}`` line with times and bounds of every
    kernel at every shape.
 6. Prints the card's ``nvidia-smi`` name and power limit, then the last
@@ -595,7 +606,11 @@ def _entry(name, shape, launches, err, k_ms, p_ms, nbytes, ops, **extra):
            "roi_align_avg_backward": ("tllod_torch/csrc/roi_align.cu",
                                       "tllod_tpu/ops/roi_align_pallas.py:144"),
            "nms_fixed": ("tllod_torch/csrc/nms.cu",
-                         "tllod_tpu/ops/nms.py:96")}[name]
+                         "tllod_tpu/ops/nms.py:96"),
+           "roi_pool": ("tllod_torch/csrc/roi_pool.cu",
+                        "tllod_tpu/ops/roi_pool.py:44"),
+           "roi_pool_backward": ("tllod_torch/csrc/roi_pool.cu",
+                                 "tllod_tpu/ops/roi_pool.py:44")}[name]
     return {"name": name, "route": "cuda", "source": src[0],
             "replaces": src[1], "shape": shape, "launches": launches,
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
@@ -783,6 +798,212 @@ def _roi_align_sets(feat, main_rois, kw):
             f"{rec['bwd_max_abs_err_bfloat16']:.3g} (max |want| "
             f"{rec['bwd_max_abs_want']:.3g})")
     return records
+
+
+def roi_pool_launcher(feat, rois, kw, grad=None):
+    """A call that launches one RoIPool kernel through its C interface and
+    nothing else (no checks, no allocation, no count): the forward on the
+    map ``feat``, or with ``grad`` the backward into a map gradient zeroed
+    once. Timed back to back with ``cuda_ms`` it gives the kernel's own
+    time."""
+    import torch
+    from tllod_torch.ops import _kernels
+    from tllod_torch.ops.roi_pool import _lib
+
+    lib = _lib()
+    b, h, w, c = feat.shape
+    r, p = rois.shape[0], kw["out_size"]
+    scale = float(kw["spatial_scale"])
+    stream = torch.cuda.current_stream().cuda_stream
+    if grad is None:
+        out = torch.empty((r, p, p, c), device=feat.device)
+        keep = (feat, rois, out)
+
+        def call():
+            _kernels.check(lib, lib.tllod_roi_pool_forward(
+                feat.data_ptr(), rois.data_ptr(), out.data_ptr(), b, h, w, c,
+                r, p, scale, stream), "roi_pool")
+    else:
+        g = grad.contiguous()
+        out = torch.zeros((b, h, w, c), device=feat.device)
+        keep = (g, feat, rois, out)
+
+        def call():
+            _kernels.check(lib, lib.tllod_roi_pool_backward(
+                g.data_ptr(), feat.data_ptr(), rois.data_ptr(),
+                out.data_ptr(), b, h, w, c, r, p, scale, stream),
+                "roi_pool_backward")
+    call.keep = keep
+    return call
+
+
+def _roi_pool_work(feat_shape, rois, kw):
+    """(distinct map pixels the RoIs' bins read, pixels read summed over
+    the bins), from the bin edges of ``roi_bins``: a RoI's non-empty bins
+    tile one rectangle of the map."""
+    from tllod_torch.ops.roi_pool import roi_bins
+
+    b, h, w, _ = feat_shape
+    bi, hs, he, ws, we = (t.cpu().numpy() for t in roi_bins(
+        rois, kw["out_size"], kw["spatial_scale"], h, w, b))
+    covered = np.zeros((b, h, w), bool)
+    area = 0
+    for r in range(len(bi)):
+        bh, bw = he[r] - hs[r], we[r] - ws[r]
+        area += int((bh[:, None] * bw[None, :]).sum())
+        if bh.any() and bw.any():
+            covered[bi[r], hs[r].min():he[r].max(),
+                    ws[r].min():we[r].max()] = True
+    return int(covered.sum()), area
+
+
+def _tie_map(feat):
+    """The map rounded to whole multiples of its standard deviation: bins
+    and columns tie, zeros most of all."""
+    import torch
+    return torch.round(feat / feat.std()).contiguous()
+
+
+def _roi_pool_forward_check(label, feat, rois, kw):
+    """The forward kernel against the plain version, float32 bit-equal;
+    returns the kernel's output."""
+    import torch
+    from tllod_torch.ops.roi_pool import roi_pool, roi_pool_plain
+
+    got = roi_pool(feat, rois, **kw)
+    want = roi_pool_plain(feat, rois, **kw)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        raise RuntimeError(f"roi_pool {label}: max err {err}")
+    return got
+
+
+def _roi_pool_entry(label, feat, rois, kw, launches):
+    """The RoIPool forward kernel on ``feat`` and on its tie map, each
+    ``torch.equal`` to the plain version; timed alone (CUDA events around
+    50 launches through its C interface), through the wrapper and the plain
+    version."""
+    from tllod_torch.ops.roi_pool import roi_pool, roi_pool_plain
+
+    got = _roi_pool_forward_check(label, feat, rois, kw)
+    _roi_pool_forward_check(f"{label} (tie map)", _tie_map(feat), rois, kw)
+    w_ms = cuda_ms(lambda: roi_pool(feat, rois, **kw), reps=50)
+    k_ms = cuda_ms(roi_pool_launcher(feat, rois, kw), reps=50)
+    p_ms = cuda_ms(lambda: roi_pool_plain(feat, rois, **kw), reps=3)
+    b, h, w, c = feat.shape
+    r, p = rois.shape[0], kw["out_size"]
+    covered, area = _roi_pool_work(feat.shape, rois, kw)
+    # each distinct pixel read once, the output written once; one compare
+    # per channel of every pixel of every bin
+    nbytes = covered * c * 4 + got.numel() * 4 + rois.numel() * 4
+    e = _entry("roi_pool", f"{label}: float32 map {b}x{h}x{w}x{c}, {r} "
+               f"rois, P={p}", launches, 0.0, k_ms, p_ms, nbytes, area * c,
+               exact=True, tie_map_exact=True, wrapper_ms=w_ms,
+               distinct_map_pixels=covered, bin_pixels=area)
+    log(f"[parity] roi_pool {e['shape']}: exact (and on its tie map), "
+        f"kernel {k_ms:.4f} ms (wrapper {w_ms:.4f}), plain {p_ms:.3f} ms, "
+        f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), {covered} map "
+        f"pixels read, {area} bin pixels")
+    return e
+
+
+def _roi_pool_backward_check(label, feat, rois, grad, kw):
+    """The backward kernel against autograd through the plain version:
+    within atol = 1e-5 * max|want|, rtol 1e-5 (atomic order over
+    overlapping bins moves the last bits). Returns (max error, max |want|,
+    the plain version's graph for timing)."""
+    import torch
+    from tllod_torch.ops.roi_pool import roi_pool_backward, roi_pool_plain
+
+    f = feat.clone().requires_grad_(True)
+    out = roi_pool_plain(f, rois, **kw)
+    (want,) = torch.autograd.grad(out, f, grad, retain_graph=True)
+    got = roi_pool_backward(grad, feat, rois, **kw)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=1e-5 * scale, rtol=1e-5):
+        raise RuntimeError(f"roi_pool_backward {label}: max err {err} (max "
+                           f"|want| {scale})")
+    return err, scale, (out, f)
+
+
+def _roi_pool_backward_entry(label, feat, rois, grad, kw, launches):
+    """The RoIPool backward kernel on the train path's own (map, RoIs,
+    output gradient), and on the tie map, each against the plain version's
+    autograd; timed as the forward is."""
+    import torch
+    from tllod_torch.ops.roi_pool import roi_pool_backward
+
+    err, scale, (out, f) = _roi_pool_backward_check(label, feat, rois, grad,
+                                                    kw)
+    tie_err, tie_scale, _ = _roi_pool_backward_check(
+        f"{label} (tie map)", _tie_map(feat), rois, grad, kw)
+    w_ms = cuda_ms(lambda: roi_pool_backward(grad, feat, rois, **kw),
+                   reps=50)
+    k_ms = cuda_ms(roi_pool_launcher(feat, rois, kw, grad), reps=50)
+    p_ms = cuda_ms(lambda: torch.autograd.grad(out, f, grad,
+                                               retain_graph=True), reps=3)
+    b, h, w, c = feat.shape
+    r, p = rois.shape[0], kw["out_size"]
+    covered, area = _roi_pool_work(feat.shape, rois, kw)
+    # the map's read pixels and the output gradient read once, the map
+    # gradient written once; per bin pixel and channel a max and a tie test
+    nbytes = (covered * c * 4 + grad.numel() * 4 + rois.numel() * 4
+              + b * h * w * c * 4)
+    e = _entry("roi_pool_backward", f"{label}: float32 grad {r}x{p}x{p}x{c}"
+               f" -> map {b}x{h}x{w}x{c}", launches, err, k_ms, p_ms, nbytes,
+               2 * area * c, tolerance={"atol": 1e-5 * scale, "rtol": 1e-5},
+               max_abs_want=scale, tie_map_max_abs_err=tie_err,
+               tie_map_max_abs_want=tie_scale, wrapper_ms=w_ms,
+               distinct_map_pixels=covered, bin_pixels=area)
+    log(f"[train-parity] roi_pool_backward {e['shape']}: max err {err:.3g} "
+        f"(max |want| {scale:.3g}; tie map {tie_err:.3g} of "
+        f"{tie_scale:.3g}), kernel {k_ms:.4f} ms (wrapper {w_ms:.4f}), "
+        f"plain {p_ms:.3f} ms, bound {e['bound_ms']:.4f} ms "
+        f"({e['bound_by']})")
+    return e
+
+
+def _sampled_proposal_check(model, cfg, seed=7):
+    """PA-ATF's sampled proposal layer, card against CPU, on spread-out
+    boxes: the anchors of the 600x1200 map (37x75) with zero deltas and
+    random scores, TEST pre-NMS 6000, TRAIN post-NMS 2000, so NMS keeps
+    more than q = postN/4 and the sampled tail holds survivors; the same
+    uniforms on both sides, selections and validity exact. (At random
+    weights the step's own target keeps fewer than q.)"""
+    import torch
+    from tllod_torch.models.rpn import proposal_layer
+
+    g = torch.Generator().manual_seed(seed)
+    anchors = model.detector.anchors_for(37, 75)
+    a = anchors.shape[0] // (37 * 75)
+    fg = torch.rand((1, 37, 75, a), generator=g)
+    deltas = torch.zeros((1, 37, 75, 4 * a))
+    info = torch.tensor([[600.0, 1200.0, 1.0]])
+    post = cfg.TRAIN.RPN_POST_NMS_TOP_N
+    u = torch.rand((1, post), generator=g)
+    kw = dict(pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N, post_nms_top_n=post,
+              nms_thresh=cfg.TEST.RPN_NMS_THRESH)
+    card = proposal_layer(fg.cuda(), deltas.cuda(), info.cuda(), anchors,
+                          sample_priorities=u.cuda(), **kw)
+    cpu = proposal_layer(fg, deltas, info, anchors.cpu(),
+                         sample_priorities=u, **kw)
+    _, kept = proposal_layer(fg, deltas, info, anchors.cpu(), **kw)
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(card, cpu)):
+        raise RuntimeError("sampled proposal layer: card and CPU select "
+                           "differently")
+    q, num = post // 4, int(kept.sum())
+    if num <= q:
+        raise RuntimeError(f"sampled proposal check: NMS kept {num}, not "
+                           f"more than q = {q}")
+    rec = {"kept": num, "q": q, "post_nms": post,
+           "valid": int(card[1].sum()), "exact": True}
+    log(f"[pa_atf-parity] sampled proposals: {kw['pre_nms_top_n']} -> "
+        f"{post}, NMS kept {num} (q {q}), {rec['valid']} valid; card and "
+        f"CPU select the same RoIs")
+    return rec
 
 
 def _nms_check(label, boxes, scores, kw):
@@ -1001,6 +1222,9 @@ def kernel_parity(model, ims, info, launches):
         entries.append(_roi_align_entry(feat, rois, kw, torch.float32, n_roi))
         if bs == 1:
             entries[-1]["sets"] = _roi_align_sets(feat, rois, kw)
+            # POOLING_MODE='pool' is off the eval path: no launches there
+            entries.append(_roi_pool_entry(
+                "eval RoIs, POOLING_MODE='pool'", feat, rois, kw, 0))
         else:
             # the main path runs float32: the bf16 variant has no launches
             entries.append(_roi_align_entry(feat, rois, kw, torch.bfloat16,
@@ -1072,7 +1296,8 @@ def _device_breakdown(prof, wall_ms, label, trace_path):
         for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])))
     # the top 15, and the hand kernels wherever they rank
     top = ranked[:15] + [kv for kv in ranked[15:]
-                         if "nms_" in kv[0] or "roi_align" in kv[0]]
+                         if "nms_" in kv[0] or "roi_align" in kv[0]
+                         or "roi_pool" in kv[0]]
     for name, (ms, n) in top:
         log(f"[profile] {ms:9.3f} ms {n:5d}x {name[:90]}")
     prof.export_chrome_trace(trace_path)
@@ -1086,6 +1311,7 @@ def kernel_kind(name: str) -> str:
     the rest (elementwise and reductions)."""
     n = name.lower()
     for kind, keys in (("nms", ("nms_",)), ("roi_align", ("roi_align",)),
+                       ("roi_pool", ("roi_pool",)),
                        ("conv", ("implicit_gemm", "conv", "wgrad", "dgrad",
                                  "fprop")),
                        ("gemm", ("gemm",)), ("sgd", ("multi_tensor_apply",)),
@@ -1108,7 +1334,8 @@ REF_PAIRS = 3               # noise-image pairs of the card-vs-CPU train check
 REF_GRAD_TOTAL, REF_GRAD_MEDIAN, REF_GRAD_LEAF = 2e-3, 1e-3, 8e-3
 # the convs and fcs whose output goes through a ReLU
 RELU_FED = re.compile(r"(backbone(_anc)?\.conv\d_\d|rpn\.conv|head\.fc[67]|"
-                      r"dc_ip[12]|img_da\w*\.(conv1|drm_conv))$")
+                      r"dc_ip[12]|img_da\w*\.(conv1|drm_conv|mask_conv1)|"
+                      r"club\d\.conv[12])$")
 DET_KEYS = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls",
             "rcnn_loss_box")
 LOSS_KEYS = DET_KEYS + ("da_img_loss", "da_ins_loss", "da_cst_loss",
@@ -1123,8 +1350,9 @@ class TrainMethod(NamedTuple):
     """A DA method's train step as phase 5 drives it: ``tag`` prefixes its
     lines; ``roi_sites`` and ``nms_sites`` name its RoIAlignAvg and
     proposal-NMS calls in the order a step makes them (a site called
-    ``teacher`` runs under ``no_grad``); ``limits`` are the card-vs-CPU
-    gradient limits (all parameters, the median one, the worst one)."""
+    ``teacher`` runs under ``no_grad``), ``pool_sites`` its RoIPool calls;
+    ``limits`` are the card-vs-CPU gradient limits (all parameters, the
+    median one, the worst one), taken on a ``ref_hw`` pair."""
     name: str
     tag: str
     model: str                       # class in tllod_torch.methods.<name>
@@ -1135,6 +1363,8 @@ class TrainMethod(NamedTuple):
     limits: tuple
     teacher: bool = False
     target_post_train: bool = False  # ATF: the target keeps TRAIN's count
+    pool_sites: tuple = ()
+    ref_hw: tuple = REF_HW
 
     def loss(self, out):
         import importlib
@@ -1172,10 +1402,11 @@ class TrainMethod(NamedTuple):
         return cpu, tuple(out)
 
 
-# MAF, ATF and PT-MAF: one pair each; limits about twice the largest
-# reading of seeds 0 and 1 on an H100 (PERF.md section 6), rounded up
-# to 1, 2 or 5 times a power of ten: MAF 9.1e-4, 2.8e-4, 1.6e-3; ATF
-# 2.9e-4, 1.1e-4, 1.5e-3; PT-MAF 8.4e-4, 1.0e-5, 1.4e-3
+# MAF, ATF, PT-MAF and PA-ATF: one pair each; limits about twice the
+# largest reading of seeds 0 and 1 on an H100 (PERF.md section 6), rounded
+# up to 1, 2 or 5 times a power of ten: MAF 9.1e-4, 2.8e-4, 1.6e-3; ATF
+# 2.9e-4, 1.1e-4, 1.5e-3; PT-MAF 8.4e-4, 1.0e-5, 1.4e-3; PA-ATF (on
+# 320x640) 3.6e-4, 1.1e-4, 2.1e-3
 TRAIN_METHODS = (
     TrainMethod("daf", "train", "DAFModel", LOSS_KEYS, ("source", "target"),
                 ("source", "target"), REF_PAIRS,
@@ -1191,6 +1422,12 @@ TRAIN_METHODS = (
                 DET_KEYS + DA_KEYS + ("kd_loss",),
                 ("source", "target", "teacher"), ("source", "target"), 1,
                 (2e-3, 5e-5, 5e-3), teacher=True),
+    TrainMethod("pa_atf", "pa_atf", "PAATFModel",
+                DET_KEYS + DA_KEYS + ("pm_loss",),
+                ("source", "ancillary source", "target"),
+                ("source", "ancillary source", "target"), 1,
+                (1e-3, 5e-4, 5e-3), target_post_train=True,
+                pool_sites=("club3", "club4", "club5"), ref_hw=(320, 640)),
 )
 
 
@@ -1283,6 +1520,15 @@ def train_phase(spec, cfg, seed, out_dir):
     if launches.get("roi_align_avg_grad_copy", 0):
         raise RuntimeError(f"the RoIAlignAvg backward copied the output "
                            f"gradient on the {spec.name} train path")
+    for name in ("roi_pool", "roi_pool_backward"):
+        want = len(spec.pool_sites) * TRAIN_STEPS
+        if launches.get(name, 0) != want:
+            raise RuntimeError(f"{spec.name} train path launched {name} "
+                               f"{launches.get(name, 0)} times in "
+                               f"{TRAIN_STEPS} steps, {want} expected")
+    if launches.get("roi_pool_grad_copy", 0):
+        raise RuntimeError(f"the RoIPool backward copied the output "
+                           f"gradient on the {spec.name} train path")
     for i, m in enumerate(metrics):
         vals = {k: float(v) for k, v in m.items()}
         if set(vals) != set(spec.loss_keys) | {"loss", "fg_cnt"}:
@@ -1299,12 +1545,14 @@ def train_phase(spec, cfg, seed, out_dir):
         f"{2000.0 / ms:.2f} images/s (2 per step), peak memory "
         f"{peak:.2f} GiB")
 
-    busy, wall, top, kinds, copies = _profile_train_step(
+    busy, wall, top, kinds, copies, pool_copies = _profile_train_step(
         step, TRAIN_WARMUP + TRAIN_STEPS, out_dir, cfg.POOLING_SIZE,
-        model.detector.dout_base_model, spec)
+        model.detector.dout_base_model, spec,
+        cfg.MAX_NUM_GT_BOXES * src["gt_boxes"].shape[0])
     torch.backends.cudnn.allow_tf32 = False
     log(f"[{tag}] cudnn.allow_tf32=False for the checks")
-    calls, nms_calls = _capture_train(spec, model, extra, src, tgt)
+    calls, nms_calls, pool_calls = _capture_train(spec, model, extra, src,
+                                                  tgt)
     entries = _backward_parity(spec, calls, launches)
     copy_ms = sum(ms for _, _, ms in copies)
     for e in entries:
@@ -1314,6 +1562,18 @@ def train_phase(spec, cfg, seed, out_dir):
     for site, (boxes, scores, kw) in zip(spec.nms_sites, nms_calls):
         entries.append(_nms_entry(f"{prefix} {site}", boxes, scores, kw,
                                   launches.get("nms", 0)))
+    pool_copy_ms = sum(ms for _, _, ms in pool_copies)
+    for site, rec in zip(spec.pool_sites, pool_calls):
+        label = f"{prefix} {site}"
+        for e in (_roi_pool_entry(label, rec["feat"], rec["rois"], rec["kw"],
+                                  launches["roi_pool"]),
+                  _roi_pool_backward_entry(label, rec["feat"], rec["rois"],
+                                           rec["grad"], rec["kw"],
+                                           launches["roi_pool_backward"])):
+            e["layout_copy_ms"] = pool_copy_ms
+            entries.append(e)
+    sampled = (_sampled_proposal_check(model, cfg) if spec.pool_sites
+               else None)
     summary = {"ms_per_step": ms, "step_ms": times,
                "images_per_s": 2000.0 / ms, "busy_ms": busy,
                "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
@@ -1321,15 +1581,21 @@ def train_phase(spec, cfg, seed, out_dir):
                "launches": launches, "card_vs_cpu": ref_errs,
                "top_kernels": top, "layout_copy_ms": copy_ms,
                "layout_copies": copies}
+    if spec.pool_sites:
+        summary.update(roi_pool_copy_ms=pool_copy_ms,
+                       roi_pool_copies=pool_copies,
+                       sampled_proposals=sampled)
     return entries, summary
 
 
-def _profile_train_step(step, i, out_dir, pool, channels, spec):
+def _profile_train_step(step, i, out_dir, pool, channels, spec, gt_rows):
     """One profiled train step: the device breakdown (busy ms, wall ms, top
-    kernels, ms by kind), and the layout copies around the RoIAlignAvg
-    kernels: the copy kernels of every op that takes a tensor of the pooled
-    shapes, (R, P, P, C) or (R, C, P, P) with P = ``pool`` and C =
-    ``channels``, as (op, shapes, device ms)."""
+    kernels, ms by kind), and the copies around the RoI pooling kernels:
+    the copy kernels of every op that takes a tensor of the pooled shapes,
+    (R, P, P, C) or (R, C, P, P) with P = ``pool``, as (op, shapes, device
+    ms). Around RoIAlignAvg, C = ``channels``; around RoIPool (the methods
+    with ``pool_sites``), R is ``gt_rows`` or twice it (CLUB's pairs) and C
+    a tap's width."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1346,17 +1612,27 @@ def _profile_train_step(step, i, out_dir, pool, channels, spec):
     busy, top, kinds = _device_breakdown(
         prof, wall_ms, "train step" if spec.name == "daf"
         else f"{spec.name} train step", trace)
-    copies = _layout_copies(trace, pool, channels)
+    club_rows = (gt_rows, 2 * gt_rows) if spec.pool_sites else ()
+    copies = [cp for cp in _layout_copies(trace, pool, (channels,))
+              if cp[1][0][0] not in club_rows]
     log(f"[profile] layout copies around RoIAlignAvg: "
         f"{sum(ms for _, _, ms in copies):.4f} ms in {len(copies)} ops: "
         + "; ".join(f"{n} {sh} {ms:.4f} ms" for n, sh, ms in copies))
-    return busy, wall_ms, top, kinds, copies
+    pool_copies = []
+    if spec.pool_sites:
+        pool_copies = [cp for cp in _layout_copies(trace, 7, (256, 512))
+                       if cp[1][0][0] in club_rows]
+        log(f"[profile] copies around RoIPool (CLUB): "
+            f"{sum(ms for _, _, ms in pool_copies):.4f} ms in "
+            f"{len(pool_copies)} ops: "
+            + "; ".join(f"{n} {sh} {ms:.4f} ms" for n, sh, ms in pool_copies))
+    return busy, wall_ms, top, kinds, copies, pool_copies
 
 
 def _layout_copies(trace_path, pool, channels):
     """From a chrome trace recorded with shapes: the copy kernels launched by
     every op that takes a tensor of the pooled shapes, (R, P, P, C) or (R,
-    C, P, P) with P = ``pool`` and C = ``channels``, as (op, shapes, device
+    C, P, P) with P = ``pool`` and C in ``channels``, as (op, shapes, device
     ms). A kernel names its op by the trace's "External id"."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
@@ -1367,8 +1643,9 @@ def _layout_copies(trace_path, pool, channels):
                 continue
             if sh and isinstance(sh[0], list):
                 yield from pooled_shapes(sh)
-            elif len(sh) == 4 and (tuple(sh[1:]) == (pool, pool, channels)
-                                   or tuple(sh[1:]) == (channels, pool, pool)):
+            elif len(sh) == 4 and (
+                    (tuple(sh[1:3]) == (pool, pool) and sh[3] in channels)
+                    or (tuple(sh[2:]) == (pool, pool) and sh[1] in channels)):
                 yield sh
 
     copy_us: dict = {}
@@ -1395,14 +1672,25 @@ def _capture_train(spec, model, extra, src, tgt):
     wrapped to record (map, RoIs, kwargs) and the gradient that reaches its
     output, and the proposal layer's NMS wrapped to record its problems; no
     update. Returns the RoIAlignAvg records, one per ``spec.roi_sites``,
-    and the NMS problems (boxes, scores, kwargs), one per
-    ``spec.nms_sites``."""
+    the NMS problems (boxes, scores, kwargs), one per ``spec.nms_sites``,
+    and the RoIPool records (map, RoIs, kwargs, output gradient), one per
+    ``spec.pool_sites``."""
+    import tllod_torch.methods.pa_atf as pa_atf
     import tllod_torch.models.faster_rcnn as frcnn
     import tllod_torch.models.rpn as rpn
     from tllod_torch.train import StepRandom
 
-    calls, nms_calls = [], []
+    calls, nms_calls, pool_calls = [], [], []
     saved, saved_nms = frcnn.roi_align_avg, rpn.nms_fixed_batched
+    saved_pool = pa_atf.roi_pool
+
+    def pool(feat, rois, **kw):
+        out = saved_pool(feat, rois, **kw)
+        rec = {"feat": feat.detach().clone(), "rois": rois.clone(),
+               "kw": kw}
+        out.register_hook(lambda g: rec.__setitem__("grad", g.clone()))
+        pool_calls.append(rec)
+        return out
 
     def nms(boxes, scores, **kw):
         nms_calls.append((boxes.detach().clone(), scores.detach().clone(),
@@ -1418,6 +1706,7 @@ def _capture_train(spec, model, extra, src, tgt):
         return out
 
     frcnn.roi_align_avg, rpn.nms_fixed_batched = wrapped, nms
+    pa_atf.roi_pool = pool
     hooks = [m.detector.head.register_forward_pre_hook(_flatten_is_view)
              for m in (model,)] + [
         t.head.register_forward_pre_hook(_flatten_is_view) for t in extra]
@@ -1427,6 +1716,7 @@ def _capture_train(spec, model, extra, src, tgt):
         spec.loss(out).backward()
     finally:
         frcnn.roi_align_avg, rpn.nms_fixed_batched = saved, saved_nms
+        pa_atf.roi_pool = saved_pool
         for h in hooks:
             h.remove()
     for p in model.parameters():
@@ -1438,7 +1728,11 @@ def _capture_train(spec, model, extra, src, tgt):
     if len(nms_calls) != len(spec.nms_sites):
         raise RuntimeError(f"{spec.name} train path: expected proposal NMS "
                            f"calls {spec.nms_sites}, got {len(nms_calls)}")
-    return calls, nms_calls
+    if [("grad" in c) for c in pool_calls] != [True] * len(spec.pool_sites):
+        raise RuntimeError(f"{spec.name} train path: expected RoIPool calls "
+                           f"{spec.pool_sites}, each with a gradient, got "
+                           f"{len(pool_calls)}")
+    return calls, nms_calls, pool_calls
 
 
 def _plain_forward(feat_shape, rois, kw):
@@ -1568,7 +1862,7 @@ def _train_hooks(m, record_terms: bool):
 
 def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
                           k):
-    """Pair ``k``: one train step of ``spec`` on a REF_HW pair of noise
+    """Pair ``k``: one train step of ``spec`` on a ``spec.ref_hw`` pair of noise
     images on the card and on the CPU (PT-MAF's teacher copied there too),
     with the CPU fed the card's random draws and proposals. Returns its
     readings; raises if fg_cnt or a loss differs."""
@@ -1577,15 +1871,16 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
     from tllod_torch.train import StepRandom
 
     s = seed + 20 + 3 * k
-    src = make_train_batch(*REF_HW, 1, s, cfg, "cuda")
-    tgt = make_train_batch(*REF_HW, 0, s + 1, cfg, "cuda")
+    hw = spec.ref_hw
+    src = make_train_batch(*hw, 1, s, cfg, "cuda")
+    tgt = make_train_batch(*hw, 0, s + 1, cfg, "cuda")
     # noise images: the flat rectangles of the timed images tie inside max
     # pool windows, and the CPU and the card route such a tie's gradient to
     # different inputs
     rs = np.random.RandomState(s + 2)
     for b in (src, tgt):
         b["im_data"] = torch.from_numpy(
-            (rs.randn(1, *REF_HW, 3) * 60).astype(np.float32)).to(
+            (rs.randn(1, *hw, 3) * 60).astype(np.float32)).to(
                 b["im_data"].device)
 
     proposals = []
@@ -1688,7 +1983,7 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
         "relu_flips": relu_flips, "relu_units": relu_units,
         "clip_flips": clip_flips, "clip_rows": clip_rows,
         "clip_rows_cpu": clip_cpu}
-    log(f"[{spec.tag}-reference] pair {k} {REF_HW[0]}x{REF_HW[1]}, fg_cnt "
+    log(f"[{spec.tag}-reference] pair {k} {hw[0]}x{hw[1]}, fg_cnt "
         f"{reading['fg_cnt']}: losses max rel err "
         f"{reading['loss_rel_err']:.3g}; gradients of {len(err)} "
         f"parameters, rel err {reading['grad_rel_err']:.3g} overall, median "
@@ -1705,7 +2000,8 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
 
 def check_train_reference(spec, model, extra, cfg, seed):
     """``spec.ref_pairs`` train steps (DAF: REF_PAIRS), each on its own
-    REF_HW pair of noise images, card against CPU: the same weights (PT-MAF's
+    ``spec.ref_hw`` pair of noise images, card against CPU: the same
+    weights (PT-MAF's
     teacher's too), the card's random draws
     replayed on the CPU (sampling priorities, dropout masks), and the
     card's proposals fed to the CPU pass (the proposal layer is compared

@@ -76,8 +76,8 @@ def test_proposal_layer_rois_match(rng, exact_exp):
                                    rtol=1e-6, atol=1e-4)
 
 
-def _detector_case(rng):
-    cfg_j, cfg_t = configs(["POOLING_MODE", "align",
+def _detector_case(rng, mode="align"):
+    cfg_j, cfg_t = configs(["POOLING_MODE", mode,
                             "TEST.RPN_PRE_NMS_TOP_N", "200",
                             "TEST.RPN_POST_NMS_TOP_N", "30",
                             "MAX_NUM_GT_BOXES", "10"])
@@ -91,8 +91,8 @@ def _detector_case(rng):
     return j_model, params, t_model, im, info, gt
 
 
-def test_full_eval_forward_matches_jax(rng):
-    j_model, params, t_model, im, info, gt = _detector_case(rng)
+def test_full_eval_forward_matches_jax(rng, mode="align"):
+    j_model, params, t_model, im, info, gt = _detector_case(rng, mode)
     j_out = jax.jit(lambda p, a, b, c: j_model.apply(
         {"params": p}, a, b, c, training=False))(params, im, info, gt)
     with torch.inference_mode():
@@ -114,6 +114,12 @@ def test_full_eval_forward_matches_jax(rng):
         np.testing.assert_allclose(t_out[key].numpy(), np.asarray(j_out[key]),
                                    rtol=1e-4, atol=1e-5)
     assert t_out["cls_prob"].std() > 1e-3     # not a collapsed softmax
+
+
+def test_full_eval_forward_pool_mode_matches_jax(rng):
+    """``POOLING_MODE='pool'``: RoIPool (the plain version on the CPU)
+    where the JAX detector runs its ``roi_pool``."""
+    test_full_eval_forward_matches_jax(rng, mode="pool")
 
 
 def test_granular_api_composes_to_forward(rng):
@@ -157,7 +163,7 @@ def test_model_without_card_or_cpu_request_raises(monkeypatch):
 
 def test_unported_paths_raise(rng):
     feat = torch.zeros(1, 4, 6, 128)
-    for mode in ("crop", "pool"):
+    for mode in ("crop",):
         _, cfg_t = configs(["POOLING_MODE", mode])
         model = FasterRCNN(9, cfg_t, net="vgg16_thin", device="cpu")
         with pytest.raises(NotImplementedError):

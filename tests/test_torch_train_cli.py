@@ -1,19 +1,26 @@
-"""The port's train CLIs (DAF, MAF, ATF, PT-MAF) on the CPU over a
+"""The port's train CLIs (DAF, MAF, ATF, PT-MAF, PA-ATF) on the CPU over a
 ``tools/make_synth_voc.py`` set: two steps with finite losses and a
 checkpoint, a resume that continues the step count, optimizer state and
-epoch, and the eval CLI reading the train checkpoint's detector subset."""
+epoch, and the eval CLIs reading the train checkpoint's detector subset.
+Then the DA runner's agreements with the JAX runner: ``--part test_all``
+evaluates the ``all_test`` split, step k trains on loader batch k + 1, and
+the logged learning rate is ``schedule(step)``."""
 
 import importlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
-from tllod_torch.cli import daf_train, faster_rcnn_test
+from tllod_torch.cli import da_runner, daf_test, daf_train, faster_rcnn_test
+from tllod_torch.data.loader import DetectionLoader
+from tllod_torch.utils.optim import epoch_decay_schedule
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 TINY = ["TRAIN.SCALES", "(64,)", "TEST.SCALES", "(64,)",
@@ -32,12 +39,12 @@ def synth_voc(tmp_path_factory):
     return str(root)
 
 
-def _train(save_dir, *extra, cli=daf_train):
+def _train(save_dir, *extra, cli=daf_train, sets=()):
     return cli.main([
         "--dataset", "cityscape", "--net", "vgg16_thin",
         "--cfg", os.path.join(REPO, "cfgs", "vgg16.yml"), "--device", "cpu",
         "--disp_interval", "1", "--use_tfb", "--save_dir", save_dir,
-        *extra, "--set", *TINY])
+        *extra, "--set", *TINY, *sets])
 
 
 def test_daf_train_cli_checkpoint_resume_and_eval(synth_voc, tmp_path,
@@ -90,20 +97,27 @@ def test_daf_train_cli_checkpoint_resume_and_eval(synth_voc, tmp_path,
     ("pt_maf", ["--allow_untrained_teacher", "--tmp", "2.0"],
      {"img_da3_f", "img_da4_f", "img_da5_f", "img_da3_b", "img_da4_b",
       "img_da5_b", "ins_da"}),
+    ("pa_atf", ["--beta", "0.2", "--use_ins"],
+     {"backbone_anc", "img_da3", "img_da4", "img_da5", "ins_da", "club3",
+      "club4", "club5"}),
 ])
 def test_method_train_cli_checkpoint_resume_and_eval(method, extra, subtrees,
                                                      synth_voc, tmp_path,
                                                      monkeypatch):
-    """MAF, ATF and PT-MAF through the shared two-stream runner: two steps
-    with finite losses, ``<method>_1_1_2.pth``, a resume to step 3, and the
-    eval CLI reading the checkpoint's detector subset."""
+    """MAF, ATF, PT-MAF and PA-ATF through the shared two-stream runner:
+    two steps with finite losses, ``<method>_1_1_2.pth``, a resume to step
+    3, and the method's eval CLI reading the checkpoint's detector subset.
+    PA-ATF trains at shortest side 320: its mask convolutions need a
+    stride-16 map of 20 pixels a side."""
     monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
     monkeypatch.setenv("TLLOD_PRETRAINED_DIR", str(tmp_path / "none"))
     cli = importlib.import_module(f"tllod_torch.cli.{method}_train")
     save = str(tmp_path / "out")
     out_dir = os.path.join(save, "vgg16_thin", "cityscape")
+    sets = ("TRAIN.SCALES", "(320,)") if method == "pa_atf" else ()
 
-    assert _train(save, "--max_steps", "2", *extra, cli=cli) == 2
+    assert _train(save, "--max_steps", "2", *extra, cli=cli,
+                  sets=sets) == 2
     ckpt = torch.load(os.path.join(out_dir, f"{method}_1_1_2.pth"),
                       weights_only=True)
     assert (ckpt["step"], ckpt["epoch"], ckpt["opt_state"]["count"]) == (
@@ -114,11 +128,12 @@ def test_method_train_cli_checkpoint_resume_and_eval(method, extra, subtrees,
     assert [r["step"] for r in recs] == [1, 2]
     for r in recs:
         losses = {k: v for k, v in r.items() if "loss" in k}
-        assert len(losses) == 9 + (method == "pt_maf") and "fg_cnt" in r
+        assert len(losses) == 9 + (method in ("pt_maf", "pa_atf")) and \
+            "fg_cnt" in r
         assert all(math.isfinite(v) for v in losses.values()), r
 
     assert _train(save, "--r", "True", "--checkepoch", "1", "--checkpoint",
-                  "2", "--max_steps", "3", *extra, cli=cli) == 3
+                  "2", "--max_steps", "3", *extra, cli=cli, sets=sets) == 3
     second = torch.load(os.path.join(out_dir, f"{method}_1_2_3.pth"),
                         weights_only=True)
     assert (second["step"], second["epoch"]) == (3, 2)
@@ -128,12 +143,13 @@ def test_method_train_cli_checkpoint_resume_and_eval(method, extra, subtrees,
     assert moved and not any(k.startswith(("detector.backbone.conv1_",
                                            "detector.backbone.conv2_"))
                              for k in moved)
-    if method == "atf":          # trained on a zero gradient, as in JAX
+    if method in ("atf", "pa_atf"):   # trained on a zero gradient, as in JAX
         assert "backbone_anc.conv1_1.weight" in moved
     if method == "pt_maf":
         assert second["meta"]["teacher_ckpt"] == "UNTRAINED (student init)"
 
-    aps = faster_rcnn_test.main([
+    test_cli = importlib.import_module(f"tllod_torch.cli.{method}_test")
+    aps = test_cli.main([
         "--dataset", "cityscape", "--part", "test_t", "--net", "vgg16_thin",
         "--cfg", os.path.join(REPO, "cfgs", "vgg16.yml"),
         "--load_name", os.path.join(out_dir, f"{method}_1_2_3.pth"),
@@ -173,3 +189,93 @@ def test_unported_train_flags_raise(synth_voc, tmp_path, monkeypatch):
     for flags in (["--o", "adam"], ["--bf16_momentum"]):
         with pytest.raises(NotImplementedError):
             _train(str(tmp_path), "--max_steps", "1", *flags)
+
+
+def _eval_args(load_name, part, out):
+    return ["--dataset", "cityscape", "--part", part, "--net", "vgg16_thin",
+            "--cfg", os.path.join(REPO, "cfgs", "vgg16.yml"),
+            "--load_name", load_name, "--device", "cpu", "--eval_bs", "2",
+            "--output_dir", out, "--set", *TINY]
+
+
+def test_da_test_part_test_all_reads_the_all_test_split(synth_voc, tmp_path,
+                                                        monkeypatch):
+    """``daf_test --part test_all`` evaluates ``cityscape_2007_test_all``,
+    as ``methods/da_runner.py:187-190`` does; ``faster_rcnn_test`` keeps
+    its own map, ``test_all`` to ``t_test``, as its JAX script does."""
+    root = tmp_path / "voc"
+    shutil.copytree(synth_voc, root)
+    main = root / "cityscape" / "VOC2007" / "ImageSets" / "Main"
+    names = [f"train_s_{i:03d}" for i in range(4)] + ["test_t_000"]
+    (main / "test_all.txt").write_text("\n".join(names) + "\n")
+    monkeypatch.setenv("TLLOD_DATA_DIR", str(root))
+    from tllod_torch.models.faster_rcnn import FasterRCNN
+    from tllod_torch.config import Config, cfg_from_list
+    weights = str(tmp_path / "w.pt")
+    det = FasterRCNN(9, cfg_from_list(Config(), TINY), "vgg16_thin",
+                     device="cpu", seed=0)
+    torch.save(det.state_dict(), weights)
+
+    read = []
+    combined = faster_rcnn_test.combined_roidb
+
+    def spy(name, **kw):
+        out = combined(name, **kw)
+        read.append((name, len(out[1])))
+        return out
+
+    monkeypatch.setattr(faster_rcnn_test, "combined_roidb", spy)
+    aps = daf_test.main(_eval_args(weights, "test_all", str(tmp_path / "e")))
+    assert math.isfinite(aps["mAP"])
+    assert read == [("cityscape_2007_test_all", 5)]
+    faster_rcnn_test.main(_eval_args(weights, "test_all",
+                                     str(tmp_path / "f")))
+    assert read[1] == ("cityscape_2007_test_t", 4)
+
+
+def test_da_runner_drops_each_loaders_first_batch_and_logs_next_lr(
+        synth_voc, tmp_path, monkeypatch):
+    """JAX spends each loader's first batch on ``model.init``, so its step
+    k trains on loader batch k + 1 (``methods/da_runner.py:79-84``), and it
+    logs ``schedule(step)`` after the step, the next update's rate
+    (``:153-158``). The roidb entries each step sees are recorded against
+    the order the loaders produced them, over two epochs with a decay at
+    the top of the second."""
+    monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
+    monkeypatch.setenv("TLLOD_PRETRAINED_DIR", str(tmp_path / "none"))
+    produced = {0: [], 1: []}
+    load_batch = DetectionLoader._load_batch
+
+    def load(self, bi, epoch):
+        batch = load_batch(self, bi, epoch)
+        lo = bi * self.batch_size
+        batch["roidb_index"] = np.asarray(self.order[lo:lo + self.batch_size])
+        produced[self.domain].append(batch["roidb_index"].tolist())
+        return batch
+
+    seen = []
+    step_fn = da_runner.train_step
+
+    def step(model, loss_fn, opt, batch_args, **kw):
+        seen.append([b["roidb_index"].tolist() for b in batch_args[:2]])
+        return step_fn(model, loss_fn, opt, batch_args, **kw)
+
+    monkeypatch.setattr(DetectionLoader, "_load_batch", load)
+    monkeypatch.setattr(da_runner, "train_step", step)
+    save = str(tmp_path / "out")
+    steps = _train(save, "--epochs", "2", "--lr_decay_step", "1")
+    assert steps == len(seen) >= 4
+    for domain, k in ((1, 0), (0, 1)):
+        assert [s[k] for s in seen] == produced[domain][1:steps + 1]
+
+    with open(os.path.join(save, "vgg16_thin", "cityscape",
+                           "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    spe = steps // 2
+    schedule = epoch_decay_schedule(0.002, spe, 1, 0.1)
+    assert [r["step"] for r in recs] == list(range(1, steps + 1))
+    assert [r["lr"] for r in recs] == [schedule(r["step"]) for r in recs]
+    # the last step of epoch 1 logs the decayed rate of the next update
+    last = recs[spe - 1]
+    assert last["epoch"] == 1 and last["lr"] == pytest.approx(2e-4)
+    assert recs[spe - 2]["lr"] == pytest.approx(2e-3)

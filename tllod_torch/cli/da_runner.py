@@ -1,6 +1,12 @@
-"""The generic two-stream (source + target) DA train loop
-(``methods/da_runner.py:31-174``). Each method's train CLI is a thin
-wrapper that names its model, its loss and its extra flags.
+"""The generic two-stream (source + target) DA train loop and the DA eval
+(``methods/da_runner.py:31-225``). Each method's train and test CLI is a
+thin wrapper: the train CLI names its model, its loss and its extra flags;
+every test CLI evaluates the checkpoint's detector (:func:`run_da_eval`).
+
+As in the JAX runner, each loader's first batch is drawn and dropped before
+the loop (JAX spends it on ``model.init``, ``da_runner.py:79-84``), so step
+k trains on loader batch k + 1; and the learning rate logged after step k
+is ``schedule(k)``, the rate of the next update (``:153-158``).
 
 Not ported from the JAX runner, and raising in
 :func:`tllod_torch.cli.common.check_train_args`: several processes,
@@ -17,6 +23,7 @@ import torch
 
 from tllod_torch.cli.common import (DATASET_MAP, MetricLogger,
                                     check_train_args, resolve_config)
+from tllod_torch.cli.faster_rcnn_test import evaluate_split
 from tllod_torch.data.loader import DetectionLoader
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.train import train_step
@@ -90,6 +97,7 @@ def run_da_training(method_name: str, model_ctor: Callable,
         os.path.join(output_dir, "metrics.jsonl") if args.use_tfboard
         else None))
     s_it, t_it = iter(s_loader), iter(t_loader)
+    next(s_it), next(t_it)       # JAX's model.init batches, dropped
     try:
         for epoch in range(args.start_epoch, args.max_epochs + 1):
             todo = steps_per_epoch
@@ -101,7 +109,7 @@ def run_da_training(method_name: str, model_ctor: Callable,
                 metrics = train_step(model, loss_fn, opt, (src, tgt, *extra),
                                      seed=cfg.RNG_SEED, step=step)
                 step += 1
-                logger.update(step, epoch, schedule(step - 1), metrics)
+                logger.update(step, epoch, schedule(step), metrics)
             done = ((args.max_steps and step >= args.max_steps)
                     or epoch == args.max_epochs)
             if done or epoch % max(1, args.save_epoch_interval) == 0:
@@ -118,3 +126,16 @@ def run_da_training(method_name: str, model_ctor: Callable,
     finally:
         logger.close()
     return step
+
+
+def run_da_eval(args) -> dict:
+    """Evaluate the detector subset of any DA checkpoint (the per-method
+    ``*_test.py``, ``methods/da_runner.py:177-225``) on the split ``--part``
+    names: ``test_s`` → ``s_test``, ``test_t`` → ``t_test``, ``test_all`` →
+    ``all_test``, or ``t_test`` where the dataset registers no
+    ``all_test``; returns the AP dict."""
+    split = {"test_s": "s_test", "test_t": "t_test",
+             "test_all": "all_test"}.get(args.part, "t_test")
+    if split not in DATASET_MAP[args.dataset]:
+        split = "t_test"
+    return evaluate_split(args, split)

@@ -8,8 +8,9 @@
 
 ``--load_name`` takes a port state dict (``torch.save(model.state_dict())``,
 ``.pt``), a train checkpoint of any of the port's train CLIs (``daf_train``,
-``maf_train``, ``atf_train``, ``pt_maf_train``; ``.pth``, whose ``detector``
-subset is loaded, as ``methods/da_runner.py:210-211`` does), or an ``.npz``
+``maf_train``, ``atf_train``, ``pt_maf_train``, ``pa_atf_train``; ``.pth``,
+whose ``detector`` subset is loaded, as ``methods/da_runner.py:210-211``
+does), or an ``.npz``
 of flattened JAX params whose keys are the flax paths
 (``backbone/conv1_1/kernel``, ...); method-only subtrees are dropped.
 """
@@ -40,18 +41,19 @@ def load_weights(model: FasterRCNN, path: str) -> None:
     model.load_state_dict(sd, strict=True)
 
 
-def main(argv=None):
-    args = build_test_parser("Evaluate a Faster R-CNN network (PyTorch)"
-                             ).parse_args(argv)
+def evaluate_split(args, split: str) -> dict:
+    """Evaluate the weights ``args.load_name`` on the dataset's ``split``
+    (a key of ``DATASET_MAP[args.dataset]``: ``s_test``, ``t_test`` or
+    ``all_test``); returns the AP dict."""
     if args.shard_eval or args.vis:
         raise NotImplementedError("--shard_eval and --vis are not ported yet")
     cfg = resolve_config(args)
     np.random.seed(cfg.RNG_SEED)
 
-    ds = DATASET_MAP[args.dataset]
-    split = {"test_s": "s_test", "test_t": "t_test"}.get(args.part, "t_test")
-    dataset, roidb, _, _ = combined_roidb(ds[split], training=False,
+    imdb = DATASET_MAP[args.dataset][split]
+    dataset, roidb, _, _ = combined_roidb(imdb, training=False,
                                           use_flipped=False)
+    print(f"{len(roidb)} roidb entries for {imdb}")
     model = FasterRCNN(num_classes=dataset.num_classes, cfg=cfg,
                        net=args.net, class_agnostic=args.class_agnostic,
                        device=args.device)
@@ -64,6 +66,15 @@ def main(argv=None):
                           max_per_image=args.max_per_image,
                           class_agnostic=args.class_agnostic,
                           eval_batch=args.eval_bs)
+
+
+def main(argv=None):
+    args = build_test_parser("Evaluate a Faster R-CNN network (PyTorch)"
+                             ).parse_args(argv)
+    # test_all is t_test here, as in the JAX script (faster_rcnn_test.py:30);
+    # the DA entries map it to all_test (da_runner.run_da_eval)
+    split = {"test_s": "s_test", "test_t": "t_test"}.get(args.part, "t_test")
+    return evaluate_split(args, split)
 
 
 if __name__ == "__main__":

@@ -18,8 +18,9 @@ the RoIAlign kernel reads without a copy.
 Training (``training=True``) draws its random numbers from a ``rng``
 argument, a :class:`tllod_torch.train.StepRandom`: the anchor-target and
 proposal-target priorities and the dropout masks, in the order the JAX
-module draws its ``sampling`` and ``dropout`` keys. The ``pool`` and
-``crop`` pooling modes are not ported yet and raise.
+module draws its ``sampling`` and ``dropout`` keys. ``POOLING_MODE`` is
+``align`` (RoIAlignAvg) or ``pool`` (RoIPool, :mod:`tllod_torch.ops.roi_pool`);
+``crop`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from tllod_torch.models.rpn import (RoiSamples, RPNHead, anchor_target,
 from tllod_torch.ops.anchors import generate_anchors, shift_anchors
 from tllod_torch.ops.losses import smooth_l1_loss, softmax_cross_entropy
 from tllod_torch.ops.roi_align import roi_align_avg
+from tllod_torch.ops.roi_pool import roi_pool
 
 
 def nhwc_features(backbone: nn.Module, im_data: torch.Tensor,
@@ -131,11 +133,14 @@ class FasterRCNN(nn.Module):
                  gt_boxes=None, *, training: bool = False,
                  compute_loss: bool = False,
                  post_nms_top_n: Optional[int] = None,
+                 sample_proposals: bool = False,
                  rng=None) -> Dict[str, Any]:
         """RPN head + proposal layer (+ anchor targets and both RPN losses
         when ``training and compute_loss``, ``faster_rcnn.py:112-132``).
         ``training`` picks the TRAIN/TEST proposal params like the
-        reference's ``cfg_key``."""
+        reference's ``cfg_key``. ``sample_proposals`` takes PA-ATF's random
+        sample of the NMS survivors, its priorities drawn from ``rng``
+        before the anchor targets' (``rpn.sample_survivors``)."""
         cfg = self.cfg
         rcfg = cfg.rpn_cfg(training)
         cls_score, bbox_pred = self.rpn(base_feat.permute(0, 3, 1, 2))
@@ -146,11 +151,13 @@ class FasterRCNN(nn.Module):
         fg_prob, logits = rpn_probs(cls_score)
 
         anchors = self.anchors_for(base_feat.shape[1], base_feat.shape[2])
+        post = post_nms_top_n or rcfg.RPN_POST_NMS_TOP_N
         rois, valid = proposal_layer(
             fg_prob, bbox_pred, im_info, anchors,
-            pre_nms_top_n=rcfg.RPN_PRE_NMS_TOP_N,
-            post_nms_top_n=post_nms_top_n or rcfg.RPN_POST_NMS_TOP_N,
-            nms_thresh=rcfg.RPN_NMS_THRESH)
+            pre_nms_top_n=rcfg.RPN_PRE_NMS_TOP_N, post_nms_top_n=post,
+            nms_thresh=rcfg.RPN_NMS_THRESH,
+            sample_priorities=(rng.uniform((base_feat.shape[0], post))
+                               if sample_proposals else None))
         zero = torch.zeros((), device=rois.device)
         out = {"rois": rois, "rois_valid": valid, "rpn_cls_prob": fg_prob,
                "rpn_logits": logits, "rpn_loss_cls": zero,
@@ -180,15 +187,18 @@ class FasterRCNN(nn.Module):
     def roi_features(self, base_feat: torch.Tensor, rois: torch.Tensor, *,
                      training: bool = False) -> torch.Tensor:
         """Pooled (R, P, P, C) features for (R, 5) RoIs flattened over the
-        batch."""
+        batch, by ``POOLING_MODE`` (``faster_rcnn.py:135-165``)."""
         del training
         cfg = self.cfg
-        if cfg.POOLING_MODE != "align":
-            raise NotImplementedError(
-                f"POOLING_MODE={cfg.POOLING_MODE!r} is not ported yet "
-                f"(align only)")
-        return roi_align_avg(base_feat, rois, out_size=cfg.POOLING_SIZE,
-                             spatial_scale=1.0 / cfg.FEAT_STRIDE[0])
+        kw = dict(out_size=cfg.POOLING_SIZE,
+                  spatial_scale=1.0 / cfg.FEAT_STRIDE[0])
+        if cfg.POOLING_MODE == "align":
+            return roi_align_avg(base_feat, rois, **kw)
+        if cfg.POOLING_MODE == "pool":
+            return roi_pool(base_feat, rois, **kw)
+        raise NotImplementedError(
+            f"POOLING_MODE={cfg.POOLING_MODE!r} is not ported yet "
+            f"(align and pool)")
 
     def box_head(self, pooled: torch.Tensor, *, deterministic: bool = True,
                  rng=None) -> torch.Tensor:
@@ -226,16 +236,19 @@ class FasterRCNN(nn.Module):
     def forward_pre_head(self, base_feat, im_info, gt_boxes=None, *,
                          training: bool = False,
                          supervised: Optional[bool] = None,
-                         post_nms_top_n: Optional[int] = None, rng=None):
+                         post_nms_top_n: Optional[int] = None,
+                         sample_proposals: bool = False, rng=None):
         """RPN → (proposal-target sampling when ``supervised``) → RoI
         pooling. Returns ``(out, samples, pooled)``, so method wrappers can
-        run the source and target RoIs through one fc6/fc7 pass."""
+        run the source and target RoIs through one fc6/fc7 pass.
+        ``sample_proposals`` as in :meth:`rpn_rois`."""
         if supervised is None:
             supervised = training
         b = base_feat.shape[0]
         rpn_out = self.rpn_rois(base_feat, im_info, gt_boxes,
                                 training=supervised, compute_loss=supervised,
-                                post_nms_top_n=post_nms_top_n, rng=rng)
+                                post_nms_top_n=post_nms_top_n,
+                                sample_proposals=sample_proposals, rng=rng)
         rois = rpn_out["rois"]
         zero = torch.zeros((), device=rois.device)
         out: Dict[str, Any] = {

@@ -23,13 +23,20 @@ stable sort keeps equal scores in index order, so bucket-padded regions,
 where many anchors score the same, select the same boxes as JAX. For the
 same reason :func:`proposal_target` ranks with a stable sort, as
 ``jnp.argsort`` does, and :func:`anchor_target` takes only the *values* of
-its top-k cuts. PA-ATF's random proposal sampling (``sample_rng``) is not
-ported yet.
+its top-k cuts.
+
+PA-ATF's target pass samples its proposals (``rpn.py:115-131``; reference
+``lib/PA_ATF/proposal_layer1.py:153-161``): :func:`proposal_layer` given
+``sample_priorities`` keeps the first quarter of the NMS survivors in rank
+order and fills the rest from a random subset of the other survivors. The
+priorities are one (B, postN) uniform, which JAX draws per image from
+``jax.random.split(sample_rng, B)``; the ranking is a stable ascending sort
+of ``-priority``, as ``jnp.argsort`` is.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,13 +76,17 @@ def rpn_probs(cls_score: torch.Tensor
 def proposal_layer(fg_prob: torch.Tensor, bbox_deltas: torch.Tensor,
                    im_info: torch.Tensor, anchors: torch.Tensor, *,
                    pre_nms_top_n: int, post_nms_top_n: int,
-                   nms_thresh: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                   nms_thresh: float,
+                   sample_priorities: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Anchors + deltas → clipped, NMS-ed, fixed-count RoIs.
 
     fg_prob: (B, H, W, A); bbox_deltas: (B, H, W, 4A); im_info: (B, 3) rows
     (height, width, scale); anchors: (K*A, 4) in the (h, w, a) flatten
     order. Returns (rois (B, postN, 5) rows (batch_idx, x1, y1, x2, y2),
     zero-padded past ``valid`` with the batch index kept; valid (B, postN)).
+    With ``sample_priorities``, a (B, postN) uniform in [0, 1), the
+    survivors are PA-ATF's sample (:func:`sample_survivors`).
     """
     b = fg_prob.shape[0]
     ka = anchors.shape[0]
@@ -94,14 +105,40 @@ def proposal_layer(fg_prob: torch.Tensor, bbox_deltas: torch.Tensor,
     idx, num = nms_fixed_batched(top_boxes, top_scores,
                                  iou_threshold=nms_thresh,
                                  max_output=post_nms_top_n, presorted=True)
-    valid = (torch.arange(post_nms_top_n, device=idx.device)[None, :]
-             < num[:, None])
+    if sample_priorities is None:
+        valid = (torch.arange(post_nms_top_n, device=idx.device)[None, :]
+                 < num[:, None])
+    else:
+        idx, valid = sample_survivors(idx, num, sample_priorities)
     sel = torch.gather(top_boxes, 1,
                        idx[..., None].expand(b, post_nms_top_n, 4))
     boxes = torch.where(valid[..., None], sel, 0.0)
     batch_col = torch.arange(b, dtype=boxes.dtype, device=boxes.device)
     batch_col = batch_col[:, None, None].expand(b, post_nms_top_n, 1)
     return torch.cat([batch_col, boxes], dim=-1).detach(), valid
+
+
+def sample_survivors(idx: torch.Tensor, num: torch.Tensor,
+                     priorities: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PA-ATF's proposal selection (``rpn.py:115-129``): of the NMS keep
+    list idx (B, postN), whose first ``num`` (B,) entries are survivors,
+    keep the first q = int(0.25·postN) in rank order, then fill the other
+    slots with the remaining survivors in the order of their
+    ``priorities`` (B, postN), highest first; slots past the survivors sort
+    last, in index order. Returns (idx, valid), both (B, postN)."""
+    b, post = idx.shape
+    q = int(post * 0.25)
+    u = _uniforms([priorities], [(b, post)], idx.device)[0]
+    slot = torch.arange(post, device=idx.device)[None, :]
+    avail = (slot >= q) & (slot < num[:, None])
+    pr = torch.where(avail, u, -torch.inf)
+    perm = torch.sort(-pr, dim=1, stable=True).indices[:, :post - q]
+    idx = torch.cat([idx[:, :q], torch.gather(idx, 1, perm)], dim=1)
+    n_head = torch.clamp(num, max=q)[:, None]
+    n_tail = torch.clamp(num - q, min=0)[:, None]
+    valid = torch.where(slot < q, slot < n_head, slot - q < n_tail)
+    return idx, valid
 
 
 def _uniforms(priorities: Sequence[torch.Tensor], shapes, device):

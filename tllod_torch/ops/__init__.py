@@ -1,3 +1,3 @@
-"""Detection ops: anchors, box math, NMS and RoIAlign, with the CUDA
-kernels of ``csrc/`` behind ``nms`` and ``roi_align`` (built and loaded by
-``_kernels``)."""
+"""Detection ops: anchors, box math, NMS, RoIAlign and RoIPool, with the
+CUDA kernels of ``csrc/`` behind ``nms``, ``roi_align`` and ``roi_pool``
+(built and loaded by ``_kernels``)."""

@@ -38,7 +38,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tllod_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-SOURCES = ("roi_align", "nms")
+SOURCES = ("roi_align", "nms", "roi_pool")
 
 launches: collections.Counter = collections.Counter()
 

@@ -10,8 +10,11 @@ flax tree:
   bias                        → bias
 
 Reading an orbax checkpoint needs JAX, so weights cross as numpy arrays.
-A method's tree (``detector/…``, ``img_da/…``, ``ins_da/…``) maps onto the
-method module the same way.
+A method's tree (``detector/…``, ``img_da/…``, ``ins_da/…``; PA-ATF's
+``img_da3/mask_conv1/…``, ``club3/fc/…``) maps onto the method module the
+same way. A dense kernel is only transposed: the port's heads flatten in
+the order flax does (fc6 (C, H, W) by the torchvision layout, as the JAX
+backbone does; PA-ATF's CLUB fc (H, W, C), as flax's NHWC reshape).
 
 :func:`load_pretrained_backbone` fills the backbone and box head from the
 caffe-pretrained ``vgg16_caffe.pth`` the reference trains from
