@@ -47,6 +47,17 @@ Phases, each ending the run nonzero on failure:
    overlaps; invalid scores, all or interleaved; tied scores; thresholds 0
    and 0.99; 36 problems of 300), each exact against the plain version and
    ``nms_numpy``.
+   4b. ResNet-101 eval (``[res101]`` lines): full depth, 16 classes, the
+   keys of ``cfgs/res101.yml`` and the voc_clipart set_cfgs, random weights
+   from ``--seed`` with JAX's zero ``conv3``; 4 synthetic 600x1200 images
+   through ``eval_engine.detect_chunks`` at eval batch 1 (TEST 6000 ->
+   300), launch counters reset before and read after (RoIAlignAvg and NMS
+   must launch), ms/image, finite detections and VOC AP, one profiled pass
+   (busy share, by kind); then RoIAlignAvg on its 1x38x75x1024 map
+   bit-equal to the plain version (the image's
+   RoIs, and phase 4's edge and regime sets, float32 and bfloat16, forward
+   and backward, at P = 7, 3 and 15) and its two NMS problems exact, as in
+   phase 4.
 5. Train: the full-width DAF model (``tllod_torch.methods.daf``, random
    weights from ``--seed``) takes 2 warm-up and 10 timed SGD steps through
    ``train.train_step`` on one source and one target 600x1200 image with
@@ -81,7 +92,19 @@ Phases, each ending the run nonzero on failure:
    version on each tap's own tensors and on a forced-tie map, and the
    sampled proposal layer card against CPU on a problem whose NMS keeps
    more than a quarter of postN; its card-vs-CPU pair runs at 320x640 (its
-   mask convolutions need a stride-16 map of 20 pixels a side).
+   mask convolutions need a stride-16 map of 20 pixels a side). Then US-DAF
+   (``[us_daf]``) at full-depth ResNet-101 on a 600x800 pair, 16 classes,
+   128 sampled source RoIs and 300 target proposals, with the res101
+   config's SGD (lr 1e-3, decay 1e-4, biases at 1x, no clip): RoIAlignAvg
+   forward and backward on the 1024-channel maps; its card-vs-CPU pair
+   runs the whole step at 160x320 with each bottleneck's ``conv3`` drawn
+   small (zero at JAX's init, which would zero every block's gradient) and
+   zeroed again for the timed steps.
+   5b. The supervised step (``[faster_rcnn]``): full-width VGG16 on one
+   600x1200 image through ``train.train_step`` with ``detection_loss``;
+   counters reset before the 10 timed steps and read after (RoIAlignAvg,
+   its backward and NMS must launch); losses finite; ms/step; one
+   profiled step.
    Prints one ``{"kernels": [...]}`` line with times and bounds of every
    kernel at every shape.
 6. Prints the card's ``nvidia-smi`` name and power limit, then the last
@@ -130,6 +153,32 @@ VGG16_CITYSCAPE = [
 ]
 CLASSES = ("__background__", "person", "rider", "car", "truck", "bus",
            "train", "motorcycle", "bicycle")
+# cfgs/res101.yml and the voc_clipart dataset set_cfgs, as KEY VALUE pairs
+RES101_VOC_CLIPART = [
+    "EXP_DIR", "res101",
+    "TRAIN.HAS_RPN", "True",
+    "TRAIN.BBOX_NORMALIZE_TARGETS_PRECOMPUTED", "True",
+    "TRAIN.RPN_POSITIVE_OVERLAP", "0.7",
+    "TRAIN.RPN_BATCHSIZE", "256",
+    "TRAIN.PROPOSAL_METHOD", "gt",
+    "TRAIN.BG_THRESH_LO", "0.0",
+    "TRAIN.DISPLAY", "20",
+    "TRAIN.BATCH_SIZE", "128",
+    "TRAIN.WEIGHT_DECAY", "0.0001",
+    "TRAIN.DOUBLE_BIAS", "False",
+    "TRAIN.LEARNING_RATE", "0.001",
+    "TEST.HAS_RPN", "True",
+    "POOLING_SIZE", "7",
+    "POOLING_MODE", "align",
+    "CROP_RESIZE_WITH_MAX_POOL", "False",
+    "ANCHOR_SCALES", "[4,8,16,32]",
+    "ANCHOR_RATIOS", "[0.5,1,2]",
+    "MAX_NUM_GT_BOXES", "50",
+]
+# the US-DAF source classes (VOC: 5 private + 10 common), data/voc.py
+VOC_CLIPART_CLASSES = ("__background__", "aeroplane", "bicycle", "bird",
+                       "boat", "bottle", "bus", "car", "cat", "chair", "cow",
+                       "diningtable", "dog", "horse", "motorbike", "person")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 N_IMAGES = 8
@@ -142,8 +191,11 @@ def log(msg: str) -> None:
 
 
 class SynthDataset:
-    classes = CLASSES
-    num_classes = len(CLASSES)
+    """The class list the in-memory VOC AP reads."""
+
+    def __init__(self, classes):
+        self.classes = classes
+        self.num_classes = len(classes)
 
 
 def make_images(n: int, seed: int, pixel_means):
@@ -355,7 +407,8 @@ def main() -> int:
                 n_dets += len(dets)
         all_boxes = [[res[i][c] for i in range(len(ims))]
                      for c in range(len(CLASSES))]
-        aps = evaluate_detections_roidb(SynthDataset, roidb, all_boxes)
+        aps = evaluate_detections_roidb(SynthDataset(CLASSES), roidb,
+                                        all_boxes)
         if not np.isfinite(aps["mAP"]):
             raise RuntimeError("mAP is not finite")
         log(f"[main] eval_bs {bs}: {n_dets} detections, VOC07 mAP "
@@ -375,20 +428,30 @@ def main() -> int:
     adversarial = _nms_adversarial()
     del model
 
-    # ---- 5. train: the DAF, MAF, ATF and PT-MAF steps, their kernels,
-    #         card vs CPU, profile ----
+    # ---- 4b. ResNet-101 eval at 600x1200 ----
+    res_kernels, res_eval = resnet_eval_phase(args.seed, args.out)
+    kernels += res_kernels
+    torch.cuda.empty_cache()
+
+    # ---- 5. train: the DAF, MAF, ATF, PT-MAF, PA-ATF and US-DAF steps,
+    #         their kernels, card vs CPU, profile; then the supervised step
     summaries = {}
     for spec in TRAIN_METHODS:
         train_kernels, summaries[spec.name] = train_phase(spec, cfg,
                                                           args.seed, args.out)
         kernels += train_kernels
         torch.cuda.empty_cache()
+    supervised = supervised_phase(cfg, args.seed, args.out)
     log("[train] summary: " + "; ".join(
         f"{name} {s['ms_per_step']:.3f} ms/step, busy {s['busy_ms']:.3f} ms, "
-        f"peak {s['peak_memory_gib']:.2f} GiB" for name, s in summaries.items()))
+        f"peak {s['peak_memory_gib']:.2f} GiB" for name, s in summaries.items())
+        + f"; faster_rcnn {supervised['ms_per_step']:.3f} ms/step, busy "
+        f"{supervised['busy_ms']:.3f} ms")
     with open(os.path.join(args.out, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_image_ms": per_image_ms,
+                   "res101_eval": res_eval,
                    "train": summaries.pop("daf"), "methods": summaries,
+                   "faster_rcnn": supervised,
                    "nms_adversarial": adversarial}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
 
@@ -524,13 +587,18 @@ def _capture(model, ims, info):
 
 
 def _flatten_is_view(head, args):
-    """Forward pre-hook on ``VGG16Head``: its fc6 flatten of the pooled
-    (R, P, P, C) tensor must share that tensor's storage (no copy)."""
+    """Forward pre-hook on the box head: the pooled (R, P, P, C) tensor must
+    be the view of an (R, C, P, P)-contiguous one, the RoIAlign kernel's
+    output, so ``VGG16Head``'s fc6 flatten is a view of it (``ResNetHead``
+    makes it (R, P, P, C)-contiguous for its channels_last layer4, a copy
+    the profile's layout-copy line counts)."""
     pooled = args[0]
-    flat = pooled.permute(0, 3, 1, 2).reshape(pooled.shape[0], -1)
-    if flat.untyped_storage().data_ptr() != \
+    nchw = pooled.permute(0, 3, 1, 2)
+    flat = nchw.reshape(pooled.shape[0], -1)
+    if not nchw.is_contiguous() or flat.untyped_storage().data_ptr() != \
             pooled.untyped_storage().data_ptr():
-        raise RuntimeError("VGG16Head's flatten copied the pooled features")
+        raise RuntimeError(f"{type(head).__name__} copies the pooled "
+                           f"features")
 
 
 def _nms_numpy_check(boxes, scores, thresh, max_output, presorted, got_idx,
@@ -758,20 +826,20 @@ def _backward_check(label, feat_shape, rois, grad, kw, dtype):
     return err, scale
 
 
-def _roi_align_sets(feat, main_rois, kw):
+def _roi_align_sets(feat, main_rois, kw, prefix=""):
     """The edge RoIs and the four regime sets at the main path's P, then
     all of them with the main path's RoIs at P = 3 and P = 15 (the kernels'
     build for any P but 7), each through the forward (float32 exact,
-    bfloat16 within its tolerance) and the backward (both layouts). Returns
-    their records."""
+    bfloat16 within its tolerance) and the backward (both layouts); their
+    labels start with ``prefix``. Returns their records."""
     import torch
 
     sets = {"edge rois": _edge_rois(feat, kw), **_regime_rois(feat, kw)}
-    sets = {label: (rois, kw) for label, rois in sets.items()}
+    sets = {prefix + label: (rois, kw) for label, rois in sets.items()}
     every = torch.cat([main_rois, *(rois for rois, _ in sets.values())])
     for p in (3, 15):
-        sets[f"main path, edge and regimes, P={p}"] = (every,
-                                                        dict(kw, out_size=p))
+        sets[f"{prefix}main path, edge and regimes, P={p}"] = (
+            every, dict(kw, out_size=p))
     rng = torch.Generator(device=feat.device).manual_seed(11)
     records = []
     for label, (rois, skw) in sets.items():
@@ -1236,26 +1304,125 @@ def kernel_parity(model, ims, info, launches):
     return entries
 
 
-def profile_main_path(model, ims, info, out_dir):
-    """torch.profiler over one eval-batch-4 chunk: CUDA time by kernel and
-    the device's busy share of the window."""
+RES_EVAL_IMAGES = 4          # 600x1200 images of the res101 eval phase
+
+
+def _profile_window(fn, label, trace_path):
+    """``torch.profiler`` over one call of ``fn`` after a warm-up one: the
+    device breakdown of ``_device_breakdown``; returns (busy ms, wall ms, ms
+    by kind)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from tllod_torch.eval_engine import detect_chunks
 
-    bs = 4
-    detect_chunks(model, chunks_of(ims[:bs], info[:bs], bs), model.cfg,
-                  num_classes=model.num_classes)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
                  ) as prof:
         t0 = time.perf_counter()
-        detect_chunks(model, chunks_of(ims[:bs], info[:bs], bs), model.cfg,
-                      num_classes=model.num_classes)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _device_breakdown(prof, wall_ms, f"eval_bs {bs}",
-                      os.path.join(out_dir, "chip_smoke_trace.json"))
+    busy, _, kinds = _device_breakdown(prof, wall_ms, label, trace_path)
+    return busy, wall_ms, kinds
+
+
+def resnet_eval_phase(seed, out_dir):
+    """Phase 4b: full-depth ResNet-101 Faster R-CNN (16 classes,
+    ``cfgs/res101.yml``, random weights from ``seed``, JAX's zero ``conv3``,
+    the stem's statistics from the first image: ``calibrate_stem``)
+    through ``eval_engine.detect_chunks`` at eval batch 1 on
+    RES_EVAL_IMAGES 600x1200 images, TEST 6000 -> 300: ms/image (the
+    median of REPS passes after a warm-up, TF32 convolutions as cuDNN's
+    default), the launches (RoIAlignAvg and NMS must launch), finite
+    detections and VOC AP, a profile of one pass over the images; then
+    RoIAlignAvg on the 1024-channel map (the
+    image's RoIs, then phase 4's edge and regime sets and P = 3 and 15 on
+    that map) and both NMS problems of one image held to their plain
+    versions (TF32 off). Returns (kernel entries, summary)."""
+    import torch
+    from tllod_torch.config import Config, cfg_from_list
+    from tllod_torch.data.evaluate import evaluate_detections_roidb
+    from tllod_torch.eval_engine import detect_chunks
+    from tllod_torch.models.faster_rcnn import FasterRCNN
+    from tllod_torch.ops import _kernels
+
+    cfg = cfg_from_list(Config(), RES101_VOC_CLIPART)
+    nc = len(VOC_CLIPART_CLASSES)
+    model = FasterRCNN(nc, cfg, "res101", device="cuda", seed=seed)
+    ims, info, roidb = make_images(RES_EVAL_IMAGES, seed + 2,
+                                   cfg.PIXEL_MEANS)
+    calibrate_stem(model, torch.from_numpy(ims[:1]).cuda())
+    log(f"[res101] res101 {sum(p.numel() for p in model.parameters())} "
+        f"params, {len(ims)} images {ims.shape[1]}x{ims.shape[2]}, eval_bs "
+        f"1, TEST {cfg.TEST.RPN_PRE_NMS_TOP_N}->"
+        f"{cfg.TEST.RPN_POST_NMS_TOP_N} rois")
+
+    def detect():
+        return detect_chunks(model, chunks_of(ims, info, 1), cfg,
+                             num_classes=nc)
+
+    torch.backends.cudnn.allow_tf32 = True          # the defaults, as eval
+    detect()
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        res = detect()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / len(ims))
+    launches = dict(_kernels.launches)
+    log(f"[res101] launches {launches}")
+    for name in ("roi_align_avg", "nms"):
+        if launches.get(name, 0) < 1:
+            raise RuntimeError(f"res101 eval never launched kernel {name}")
+    n_dets = 0
+    for per_class in res.values():
+        for dets in per_class:
+            if dets.shape[1:] != (5,) or not np.isfinite(dets).all():
+                raise RuntimeError("res101 eval: non-finite or mis-shaped "
+                                   "detections")
+            n_dets += len(dets)
+    aps = evaluate_detections_roidb(
+        SynthDataset(VOC_CLIPART_CLASSES), roidb,
+        [[res[i][c] for i in range(len(ims))] for c in range(nc)])
+    if not np.isfinite(aps["mAP"]):
+        raise RuntimeError("res101 eval: mAP is not finite")
+    ms = float(np.median(times))
+    log(f"[res101] eval_bs 1: {ms:.3f} ms/image (median of {REPS} passes), "
+        f"{n_dets} detections, VOC07 mAP {aps['mAP']:.4f} (random weights)")
+    busy, wall, kinds = _profile_window(
+        detect, f"res101 eval_bs 1, {len(ims)} images",
+        os.path.join(out_dir, "chip_smoke_res101_eval_trace.json"))
+
+    torch.backends.cudnn.allow_tf32 = False
+    calls = _capture(model, ims[:1], info[:1])
+    (feat, rois), kw = calls["roi_align"][0]
+    entries = [_roi_align_entry(feat, rois, kw, torch.float32,
+                                launches["roi_align_avg"],
+                                label="res101 eval")]
+    entries[0]["sets"] = _roi_align_sets(feat, rois, kw, prefix="res101 ")
+    for label, site in (("res101 proposal", "rpn_nms"),
+                        ("res101 postprocess", "cls_nms")):
+        (boxes, scores), nkw = calls[site][0]
+        entries.append(_nms_entry(label, boxes, scores, nkw,
+                                  launches["nms"]))
+    return entries, {"ms_per_image": ms, "pass_ms_per_image": times,
+                     "launches": launches, "detections": n_dets,
+                     "mAP": aps["mAP"], "busy_ms": busy,
+                     "profiled_wall_ms": wall, "busy_ms_by_kind": kinds}
+
+
+def profile_main_path(model, ims, info, out_dir):
+    """torch.profiler over one eval-batch-4 chunk: CUDA time by kernel and
+    the device's busy share of the window."""
+    from tllod_torch.eval_engine import detect_chunks
+
+    bs = 4
+    _profile_window(
+        lambda: detect_chunks(model, chunks_of(ims[:bs], info[:bs], bs),
+                              model.cfg, num_classes=model.num_classes),
+        f"eval_bs {bs}", os.path.join(out_dir, "chip_smoke_trace.json"))
 
 
 def _device_breakdown(prof, wall_ms, label, trace_path):
@@ -1335,7 +1502,7 @@ REF_GRAD_TOTAL, REF_GRAD_MEDIAN, REF_GRAD_LEAF = 2e-3, 1e-3, 8e-3
 # the convs and fcs whose output goes through a ReLU
 RELU_FED = re.compile(r"(backbone(_anc)?\.conv\d_\d|rpn\.conv|head\.fc[67]|"
                       r"dc_ip[12]|img_da\w*\.(conv1|drm_conv|mask_conv1)|"
-                      r"club\d\.conv[12])$")
+                      r"club\d\.conv[12]|backbone\.bn1|layer\d_\d+\.bn[12])$")
 DET_KEYS = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls",
             "rcnn_loss_box")
 LOSS_KEYS = DET_KEYS + ("da_img_loss", "da_ins_loss", "da_cst_loss",
@@ -1352,7 +1519,11 @@ class TrainMethod(NamedTuple):
     proposal-NMS calls in the order a step makes them (a site called
     ``teacher`` runs under ``no_grad``), ``pool_sites`` its RoIPool calls;
     ``limits`` are the card-vs-CPU gradient limits (all parameters, the
-    median one, the worst one), taken on a ``ref_hw`` pair."""
+    median one, the worst one), taken on a ``ref_hw`` pair. ``net``,
+    ``classes``, ``cfg_pairs`` (None: phase 2's VGG16 Cityscapes config),
+    ``train_hw`` and ``lr`` set the model, its config, its images and its
+    SGD's rate; the decay, the bias rate and the clip follow the config and
+    the net, as ``utils.optim.build_optimizer`` sets them."""
     name: str
     tag: str
     model: str                       # class in tllod_torch.methods.<name>
@@ -1365,6 +1536,11 @@ class TrainMethod(NamedTuple):
     target_post_train: bool = False  # ATF: the target keeps TRAIN's count
     pool_sites: tuple = ()
     ref_hw: tuple = REF_HW
+    net: str = TRAIN_NET
+    classes: tuple = CLASSES
+    cfg_pairs: tuple = None
+    train_hw: tuple = TRAIN_HW
+    lr: float = 0.002
 
     def loss(self, out):
         import importlib
@@ -1379,23 +1555,25 @@ class TrainMethod(NamedTuple):
         import importlib
         from tllod_torch.models.faster_rcnn import FasterRCNN
         mod = importlib.import_module(f"tllod_torch.methods.{self.name}")
-        model = getattr(mod, self.model)(len(CLASSES), cfg, TRAIN_NET,
+        model = getattr(mod, self.model)(len(self.classes), cfg, self.net,
                                          device=device, seed=seed)
         if not self.teacher:
             return model, ()
-        teacher = FasterRCNN(len(CLASSES), cfg, TRAIN_NET, device=device,
+        teacher = FasterRCNN(len(self.classes), cfg, self.net, device=device,
                              seed=seed + TEACHER_SEED)
         return model, (teacher.requires_grad_(False),)
 
     def cpu_copy(self, model, extra):
         """The same weights on the CPU."""
         from tllod_torch.models.faster_rcnn import FasterRCNN
-        cpu = type(model)(len(CLASSES), model.cfg, TRAIN_NET, device="cpu")
+        cpu = type(model)(len(self.classes), model.cfg, self.net,
+                          device="cpu")
         cpu.load_state_dict({k: v.cpu() for k, v in
                              model.state_dict().items()})
         out = []
         for t in extra:
-            c = FasterRCNN(len(CLASSES), t.cfg, TRAIN_NET, device="cpu")
+            c = FasterRCNN(len(self.classes), t.cfg, self.net,
+                           device="cpu")
             c.load_state_dict({k: v.cpu() for k, v in
                                t.state_dict().items()})
             out.append(c.requires_grad_(False))
@@ -1428,12 +1606,42 @@ TRAIN_METHODS = (
                 ("source", "ancillary source", "target"), 1,
                 (1e-3, 5e-4, 5e-3), target_post_train=True,
                 pool_sites=("club3", "club4", "club5"), ref_hw=(320, 640)),
+    # US-DAF at res101 on a VOC (500x375) and Clipart1k pair at shortest
+    # side 600, so both are 600x800 and fuse; 128 sampled source RoIs;
+    # limits about twice the largest reading of seeds 0 and 1 (1.3e-5,
+    # 1.7e-5, 1.1e-4), rounded up as above
+    TrainMethod("us_daf", "us_daf", "USDAFModel", DET_KEYS + DA_KEYS,
+                ("source", "target"), ("source", "target"), 1,
+                (5e-5, 5e-5, 5e-4), net="res101",
+                classes=VOC_CLIPART_CLASSES,
+                cfg_pairs=tuple(RES101_VOC_CLIPART), train_hw=(600, 800),
+                lr=0.001),
 )
 
 
-def make_train_batch(h, w, domain, seed, cfg, device):
+def calibrate_stem(det, im_data) -> None:
+    """Set a random-init ResNet's stem FrozenBN statistics (``bn1``'s mean
+    and var) to the per-channel mean and variance of its ``conv1`` output
+    on the NHWC images ``im_data``, as a pretrained ResNet's BatchNorm
+    statistics normalise it. Without it the pixel-scale images (±128, the
+    loader's mean-subtracted BGR) keep their scale through every
+    He-initialised block (each residual branch is 0 at JAX's init), the
+    logits reach the thousands, and the res101 step, which has no gradient
+    clip, goes to NaN within a few steps."""
+    import torch
+
+    bb = det.backbone
+    with torch.no_grad():
+        y = bb.conv1(im_data.permute(0, 3, 1, 2))
+        bb.bn1.mean.copy_(y.mean(dim=(0, 2, 3)))
+        bb.bn1.var.copy_(y.var(dim=(0, 2, 3), unbiased=False))
+
+
+def make_train_batch(h, w, domain, seed, cfg, device,
+                     n_classes=len(CLASSES)):
     """One synthetic (1, h, w) image of filled rectangles with TRAIN_GT gt
-    boxes, mean-subtracted like the train loader, as device tensors."""
+    boxes of classes 1 .. n_classes - 1, mean-subtracted like the train
+    loader, as device tensors."""
     import torch
 
     rng = np.random.RandomState(seed)
@@ -1445,7 +1653,7 @@ def make_train_batch(h, w, domain, seed, cfg, device):
         x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
         im[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
         gt[0, k] = [x1, y1, x1 + bw - 1, y1 + bh - 1,
-                    rng.randint(1, len(CLASSES))]
+                    rng.randint(1, n_classes)]
     im -= np.asarray(cfg.PIXEL_MEANS, np.float32)
     return {"im_data": torch.from_numpy(im[None]).to(device),
             "im_info": torch.tensor([[h, w, 1.0]], device=device),
@@ -1454,34 +1662,46 @@ def make_train_batch(h, w, domain, seed, cfg, device):
 
 
 def train_phase(spec, cfg, seed, out_dir):
-    """Full-width train steps of the method ``spec`` at 600x1200 through
-    ``train_step``; both RoIAlignAvg kernels and the proposal NMS held to
-    their plain versions on the step's own tensors; one step card vs CPU on
-    each of ``spec.ref_pairs`` noise pairs; a profile of one step. Returns
-    (kernel entries, summary)."""
+    """Full-width train steps of the method ``spec`` at ``spec.train_hw``
+    through ``train_step``; both RoIAlignAvg kernels and the proposal NMS
+    held to their plain versions on the step's own tensors; one step card
+    vs CPU on each of ``spec.ref_pairs`` noise pairs; a profile of one
+    step. ``cfg`` is phase 2's, unless ``spec.cfg_pairs`` gives the
+    method's own. Returns (kernel entries, summary)."""
     import torch
+    from tllod_torch.config import Config, cfg_from_list
     from tllod_torch.ops import _kernels
     from tllod_torch.train import train_step
     from tllod_torch.utils.optim import SGD, epoch_decay_schedule
 
+    if spec.cfg_pairs:
+        cfg = cfg_from_list(Config(), spec.cfg_pairs)
     dev = torch.device("cuda")
     tag = spec.tag
     model, extra = spec.build(cfg, seed, dev)
-    src = make_train_batch(*TRAIN_HW, 1, seed + 10, cfg, dev)
-    tgt = make_train_batch(*TRAIN_HW, 0, seed + 11, cfg, dev)
-    # lr 0.002, momentum 0.9, decay 5e-4, bias x2, clip 10 (vgg16); one
-    # long epoch, so no decay step falls in the run
+    nc = len(spec.classes)
+    src = make_train_batch(*spec.train_hw, 1, seed + 10, cfg, dev, nc)
+    tgt = make_train_batch(*spec.train_hw, 0, seed + 11, cfg, dev, nc)
+    if spec.net.startswith("res"):
+        calibrate_stem(model.detector, src["im_data"])
+    # momentum 0.9, and as build_optimizer: the config's decay and bias
+    # rate (vgg16: 5e-4, x2; res101: 1e-4, x1), the clip at 10 for vgg16
+    # only; one long epoch, so no decay step falls in the run
     opt = SGD(model.named_parameters(),
-              epoch_decay_schedule(0.002, 10 ** 6, 6), momentum=0.9,
-              weight_decay=5e-4, clip_norm=10.0)
+              epoch_decay_schedule(spec.lr, 10 ** 6, 6),
+              momentum=cfg.TRAIN.MOMENTUM,
+              weight_decay=cfg.TRAIN.WEIGHT_DECAY,
+              double_bias=cfg.TRAIN.DOUBLE_BIAS,
+              clip_norm=10.0 if spec.net == "vgg16" else None)
     n_params = sum(p.numel() for p in model.parameters())
     n_train = sum(p.numel() for p in opt.named_params().values())
     t = cfg.TRAIN
     t_post = (t.RPN_POST_NMS_TOP_N if spec.target_post_train
               else cfg.TEST.RPN_POST_NMS_TOP_N)
-    log(f"[{tag}] {spec.name.upper().replace('_', '-')} {TRAIN_NET} "
-        f"{n_params} params ({n_train} trained), "
-        f"1+1 images {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_GT} gt each, "
+    log(f"[{tag}] {spec.name.upper().replace('_', '-')} {spec.net} "
+        f"{n_params} params ({n_train} trained), {nc} classes, "
+        f"1+1 images {spec.train_hw[0]}x{spec.train_hw[1]}, {TRAIN_GT} gt "
+        f"each, lr {spec.lr}, decay {cfg.TRAIN.WEIGHT_DECAY}, "
         f"TRAIN {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} rois, "
         f"{t.BATCH_SIZE} sampled, TEST {cfg.TEST.RPN_PRE_NMS_TOP_N}->"
         f"{t_post}"
@@ -1492,7 +1712,9 @@ def train_phase(spec, cfg, seed, out_dir):
         return train_step(model, spec.loss, opt, (src, tgt, *extra),
                           seed=seed, step=i)
 
-    # card against CPU at the seeded weights, TF32 off
+    # card against CPU at the seeded weights, TF32 off (set here: the phase
+    # may run alone, in a fresh process, where cuDNN's default is on)
+    torch.backends.cudnn.allow_tf32 = False
     ref_errs = check_train_reference(spec, model, extra, cfg, seed)
     torch.backends.cudnn.allow_tf32 = True          # the defaults, as eval
     log(f"[{tag}] tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -1586,6 +1808,71 @@ def train_phase(spec, cfg, seed, out_dir):
                        roi_pool_copies=pool_copies,
                        sampled_proposals=sampled)
     return entries, summary
+
+
+def supervised_phase(cfg, seed, out_dir):
+    """Phase 5b: the supervised Faster R-CNN step (``faster_rcnn_train``'s):
+    full-width VGG16 (random weights from ``seed``) on one 600x1200
+    Cityscapes image with TRAIN_GT gt boxes, ``detection_loss`` through
+    ``train.train_step`` with the CLI's SGD (lr 0.002, decay 5e-4, bias
+    x2, clip 10). TRAIN_WARMUP steps, then the launch counters set to 0 and
+    TRAIN_STEPS timed steps; RoIAlignAvg, its backward and NMS must have
+    launched, and the four losses be finite; then one profiled step.
+    Returns the summary."""
+    import torch
+    from tllod_torch.models.faster_rcnn import FasterRCNN, detection_loss
+    from tllod_torch.ops import _kernels
+    from tllod_torch.train import train_step
+    from tllod_torch.utils.optim import SGD, epoch_decay_schedule
+
+    torch.backends.cudnn.allow_tf32 = True          # the defaults, as eval
+    model = FasterRCNN(len(CLASSES), cfg, "vgg16", device="cuda", seed=seed)
+    b = make_train_batch(*TRAIN_HW, 1, seed + 10, cfg, "cuda")
+    batch = (b["im_data"], b["im_info"], b["gt_boxes"])
+    opt = SGD(model.named_parameters(),
+              epoch_decay_schedule(0.002, 10 ** 6, 6), momentum=0.9,
+              weight_decay=5e-4, clip_norm=10.0)
+
+    def step(i):
+        return train_step(model, detection_loss, opt, batch, seed=seed,
+                          step=i)
+
+    for i in range(TRAIN_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    times, metrics = [], []
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(step(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_kernels.launches)
+    busy, wall, kinds = _profile_window(
+        lambda: step(TRAIN_WARMUP + TRAIN_STEPS), "faster_rcnn train step",
+        os.path.join(out_dir, "chip_smoke_faster_rcnn_train_trace.json"))
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[faster_rcnn] launches {launches}")
+    for name in ("roi_align_avg", "roi_align_avg_backward", "nms"):
+        if launches.get(name, 0) < 1:
+            raise RuntimeError(f"the supervised train path never launched "
+                               f"kernel {name}")
+    keys = DET_KEYS + ("loss",)
+    for i, m in enumerate(metrics):
+        vals = {k: float(m[k]) for k in keys}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"non-finite supervised metrics at step {i}: "
+                               f"{vals}")
+        log(f"[faster_rcnn] step {TRAIN_WARMUP + i}: {times[i]:.3f} ms | "
+            + ", ".join(f"{k} {v:.5f}" for k, v in vals.items())
+            + f", fg_cnt {float(m['fg_cnt']):.0f}")
+    ms = float(np.median(times))
+    log(f"[faster_rcnn] VGG16 1 image {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+        f"{ms:.3f} ms/step (median of {TRAIN_STEPS} steps), "
+        f"{1000.0 / ms:.2f} images/s")
+    return {"ms_per_step": ms, "step_ms": times, "images_per_s": 1000.0 / ms,
+            "launches": launches, "busy_ms": busy, "profiled_wall_ms": wall,
+            "busy_ms_by_kind": kinds}
 
 
 def _profile_train_step(step, i, out_dir, pool, channels, spec, gt_rows):
@@ -1817,13 +2104,16 @@ def _backward_parity(spec, calls, launches):
 def _train_hooks(m, record_terms: bool):
     """Forward hooks on ``m`` that record, per call: the sign of every
     ReLU-fed pre-activation (``signs``, on the CPU) and the ``ins_da``
-    probabilities (``probs``) of a sigmoid head (DAF's, ATF's); with ``record_terms``, for every trained
+    probabilities (``probs``) of a sigmoid head (DAF's, ATF's, US-DAF's);
+    with ``record_terms``, for every trained
     bias, the sums over rows and positions of ∂L/∂out and of |∂L/∂out| per
     channel: the signed sum of its gradient's terms, and of their
     magnitudes (``terms[key] = [signed, magnitude]``). Returns (records,
     hook handles)."""
     from torch import nn
     from tllod_torch.methods.da_modules import InstanceDA
+    from tllod_torch.methods.us_daf import InstanceDAScale
+    from tllod_torch.models.backbones import FrozenBN
 
     rec = {"signs": {}, "probs": [], "terms": {}}
     handles = []
@@ -1838,11 +2128,11 @@ def _train_hooks(m, record_terms: bool):
         return hook
 
     for name, mod in m.named_modules():
-        if not isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if not isinstance(mod, (nn.Conv2d, nn.Linear, FrozenBN)):
             continue
         relu = bool(RELU_FED.search(name))
-        biased = (record_terms and mod.bias is not None
-                  and mod.bias.requires_grad)
+        biased = (record_terms and not isinstance(mod, FrozenBN)
+                  and mod.bias is not None and mod.bias.requires_grad)
         if not (relu or biased):
             continue
 
@@ -1853,7 +2143,7 @@ def _train_hooks(m, record_terms: bool):
             if biased and out.requires_grad:  # not under no_grad
                 out.register_hook(add_terms(name + ".bias", ch_dim))
         handles.append(mod.register_forward_hook(fwd))
-    if isinstance(m.ins_da, InstanceDA):         # sigmoid probabilities
+    if isinstance(m.ins_da, (InstanceDA, InstanceDAScale)):   # sigmoids
         handles.append(m.ins_da.register_forward_hook(
             lambda mod, inp, out: rec["probs"].append(
                 out.detach().float().cpu())))
@@ -1872,8 +2162,8 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
 
     s = seed + 20 + 3 * k
     hw = spec.ref_hw
-    src = make_train_batch(*hw, 1, s, cfg, "cuda")
-    tgt = make_train_batch(*hw, 0, s + 1, cfg, "cuda")
+    src = make_train_batch(*hw, 1, s, cfg, "cuda", len(spec.classes))
+    tgt = make_train_batch(*hw, 0, s + 1, cfg, "cuda", len(spec.classes))
     # noise images: the flat rectangles of the timed images tie inside max
     # pool windows, and the CPU and the card route such a tie's gradient to
     # different inputs
@@ -2016,11 +2306,30 @@ def check_train_reference(spec, model, extra, cfg, seed):
     magnitudes, the median within the second and the worst within the
     third. Every pair's readings are printed before any limit is applied,
     with the counts of ReLU sign flips and BCE clip crossings between the
-    two sides."""
-    cpu, cpu_extra = spec.cpu_copy(model, extra)
-    readings = [_train_reference_pair(spec, model, extra, cpu, cpu_extra,
-                                      cfg, seed, k)
-                for k in range(spec.ref_pairs)]
+    two sides.
+
+    A ResNet's bottleneck ``conv3`` kernels are drawn from normal(0, 0.1 x
+    He) for these steps, on both sides, and set back to zero after: at
+    JAX's zero init every residual branch gives 0, and the gradients of
+    every block's ``conv1`` and ``conv2`` would be 0 on both sides."""
+    import torch
+    from tllod_torch.models.backbones import Bottleneck
+
+    conv3 = [m.conv3.weight for m in model.modules()
+             if isinstance(m, Bottleneck)]
+    g = torch.Generator(device=model.device).manual_seed(seed + 30)
+    with torch.no_grad():
+        for w in conv3:
+            w.normal_(0.0, 0.1 * (2.0 / w[0].numel()) ** 0.5, generator=g)
+    try:
+        cpu, cpu_extra = spec.cpu_copy(model, extra)
+        readings = [_train_reference_pair(spec, model, extra, cpu, cpu_extra,
+                                          cfg, seed, k)
+                    for k in range(spec.ref_pairs)]
+    finally:
+        with torch.no_grad():
+            for w in conv3:
+                w.zero_()
     total, median, leaf = spec.limits
     for r in readings:
         if (r["grad_rel_err"] > total or r["grad_rel_err_median"] > median

@@ -26,8 +26,8 @@ print(sorted(m for m in sys.modules if m.startswith("tllod_torch.")))
 roots = {{m.split(".")[0] for m in set(sys.modules) - before}}
 print(sorted(roots & set({FORBIDDEN!r} + {LAZY!r})))
 """
-# the modules of the MAF, ATF and PT-MAF slice and of the PA-ATF slice,
-# which the walk must reach
+# the modules of the MAF, ATF and PT-MAF slice, of the PA-ATF slice and of
+# the US-DAF and supervised-train slice, which the walk must reach
 SLICE = ("tllod_torch.methods.maf", "tllod_torch.methods.atf",
          "tllod_torch.methods.pt_maf", "tllod_torch.cli.da_runner",
          "tllod_torch.cli.maf_train", "tllod_torch.cli.atf_train",
@@ -35,7 +35,9 @@ SLICE = ("tllod_torch.methods.maf", "tllod_torch.methods.atf",
          "tllod_torch.methods.pa_atf", "tllod_torch.cli.pa_atf_train",
          "tllod_torch.cli.daf_test", "tllod_torch.cli.maf_test",
          "tllod_torch.cli.atf_test", "tllod_torch.cli.pt_maf_test",
-         "tllod_torch.cli.pa_atf_test")
+         "tllod_torch.cli.pa_atf_test", "tllod_torch.methods.us_daf",
+         "tllod_torch.cli.us_daf_train", "tllod_torch.cli.us_daf_test",
+         "tllod_torch.cli.faster_rcnn_train")
 
 
 def test_port_and_chip_smoke_import_no_jax_nor_heavy_io():

@@ -50,3 +50,21 @@ def random_params(model, rng, *init_args, **init_kw):
         return (rng.randn(*s.shape) * std).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def with_resnet_stats(params, rng, conv3_scale=0.5):
+    """``params`` with every FrozenBN given non-trivial statistics (scale
+    and var in [0.5, 1.5], bias and mean normal(0, 0.1)) and every
+    bottleneck ``conv3`` kernel scaled by ``conv3_scale``: never zero, as
+    the JAX init would have it, so that every block's gradient flows."""
+    def leaf(path, x):
+        keys = [str(getattr(k, "key", k)) for k in path]
+        if len(keys) >= 2 and keys[-2].endswith(("bn1", "bn2", "bn3", "_bn")):
+            if keys[-1] in ("scale", "var"):
+                return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+            return (rng.randn(*x.shape) * 0.1).astype(np.float32)
+        if keys[-2:] == ["conv3", "kernel"]:
+            return (np.asarray(x) * conv3_scale).astype(np.float32)
+        return x
+
+    return jax.tree_util.tree_map_with_path(leaf, params)

@@ -28,7 +28,8 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--dataset", default="cityscape", type=str)
     p.add_argument("--net", default="vgg16", type=str,
-                   help="vgg16 (vgg16_thin: the width-0.25 test variant)")
+                   help="vgg16, res50, res101 or res152 (vgg16_thin and "
+                        "res14: the test variants)")
     p.add_argument("--cfg", dest="cfg_file", default=None, type=str,
                    help="config file (default cfgs/<net>.yml)")
     p.add_argument("--start_epoch", default=1, type=int)

@@ -2,8 +2,10 @@
 (``methods/da_runner.py:31-225``). Each method's train and test CLI is a
 thin wrapper: the train CLI names its model, its loss and its extra flags;
 every test CLI evaluates the checkpoint's detector (:func:`run_da_eval`).
+:func:`train_loop` is the epoch loop itself, which the one-stream
+``faster_rcnn_train`` runs too.
 
-As in the JAX runner, each loader's first batch is drawn and dropped before
+As in the JAX scripts, each loader's first batch is drawn and dropped before
 the loop (JAX spends it on ``model.init``, ``da_runner.py:79-84``), so step
 k trains on loader batch k + 1; and the learning rate logged after step k
 is ``schedule(k)``, the rate of the next update (``:153-158``).
@@ -47,9 +49,9 @@ def run_da_training(method_name: str, model_ctor: Callable,
     seed=, **extra_model_kwargs)`` on the dataset's source and target
     loaders with ``loss_builder(args)(out)``; returns the last step reached.
 
-    The detector's backbone and head start from ``vgg16_caffe.pth`` when it
-    is there (:func:`tllod_torch.zoo.load_pretrained_backbone`), and so do
-    the bare backbones named in ``extra_backbone_subtrees``.
+    The detector's backbone and head start from the net's caffe-pretrained
+    file when it is there (:func:`tllod_torch.zoo.load_pretrained_backbone`),
+    and so do the bare backbones named in ``extra_backbone_subtrees``.
     ``step_inputs(model)``, called once after that, gives extra positional
     arguments passed to the model every step after ``(src, tgt)`` (PT-MAF's
     teacher). Checkpoints go to ``<save_dir>/<net>/<dataset>/<method_name>_
@@ -79,9 +81,22 @@ def run_da_training(method_name: str, model_ctor: Callable,
         # backbone (reference lib/ATF/vgg16.py:48 deepcopy)
         load_pretrained_backbone(getattr(model, sub), args.net)
     extra = tuple(step_inputs(model)) if step_inputs else ()
-    steps_per_epoch = min(len(s_loader), len(t_loader))
+    return train_loop(method_name, model, loss_builder(args),
+                      (s_loader, t_loader),
+                      lambda src, tgt: (src, tgt, *extra), args, cfg,
+                      meta=meta)
+
+
+def train_loop(method_name: str, model, loss_fn: Callable,
+               loaders: Sequence[DetectionLoader], step_args: Callable,
+               args, cfg, *, meta: Optional[dict] = None) -> int:
+    """The epoch loop every train CLI runs: ``min(len(loader))`` steps an
+    epoch, each ``train_step`` on ``step_args(*batches)``, one device batch
+    from each loader; the reference SGD from ``args``; ``--r`` resume;
+    a checkpoint every ``--save_epoch_interval`` epochs and at the end.
+    Returns the last step reached."""
+    steps_per_epoch = min(len(loader) for loader in loaders)
     schedule, opt = build_optimizer(args, cfg, model, steps_per_epoch)
-    loss_fn = loss_builder(args)
 
     output_dir = os.path.join(args.save_dir, args.net, args.dataset)
     os.makedirs(output_dir, exist_ok=True)
@@ -96,17 +111,18 @@ def run_da_training(method_name: str, model_ctor: Callable,
     logger = MetricLogger(args.disp_interval, jsonl_path=(
         os.path.join(output_dir, "metrics.jsonl") if args.use_tfboard
         else None))
-    s_it, t_it = iter(s_loader), iter(t_loader)
-    next(s_it), next(t_it)       # JAX's model.init batches, dropped
+    its = [iter(loader) for loader in loaders]
+    for it in its:               # JAX's model.init batches, dropped
+        next(it)
     try:
         for epoch in range(args.start_epoch, args.max_epochs + 1):
             todo = steps_per_epoch
             if args.max_steps:
                 todo = min(todo, max(0, args.max_steps - step))
             for _ in range(todo):
-                src = _to_device(next(s_it), model.device)
-                tgt = _to_device(next(t_it), model.device)
-                metrics = train_step(model, loss_fn, opt, (src, tgt, *extra),
+                batches = [_to_device(next(it), model.device) for it in its]
+                metrics = train_step(model, loss_fn, opt,
+                                     step_args(*batches),
                                      seed=cfg.RNG_SEED, step=step)
                 step += 1
                 logger.update(step, epoch, schedule(step), metrics)

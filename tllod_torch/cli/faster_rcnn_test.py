@@ -7,8 +7,9 @@
         --net vgg16 --load_name weights.pt [--eval_bs 4] [--device cpu]
 
 ``--load_name`` takes a port state dict (``torch.save(model.state_dict())``,
-``.pt``), a train checkpoint of any of the port's train CLIs (``daf_train``,
-``maf_train``, ``atf_train``, ``pt_maf_train``, ``pa_atf_train``; ``.pth``,
+``.pt``), a train checkpoint of any of the port's train CLIs
+(``faster_rcnn_train``, ``daf_train``, ``maf_train``, ``atf_train``,
+``pt_maf_train``, ``pa_atf_train``, ``us_daf_train``; ``.pth``,
 whose ``detector`` subset is loaded, as ``methods/da_runner.py:210-211``
 does), or an ``.npz``
 of flattened JAX params whose keys are the flax paths

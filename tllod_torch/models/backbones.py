@@ -18,6 +18,30 @@ name for name. ``frozen_blocks=2`` freezes conv1-2 as ``backbones.py:69-70``
 does: the graph is cut after block 2 and those weights take no gradient.
 ``return_taps`` gives the c3/c4/c5 maps MAF, ATF and PT-MAF put their image
 discriminators on (``backbones.py:71-73``); ``stage_range`` comes with IDF.
+
+The ResNet-50/101/152 backbones (``backbones.py:97-227``; reference
+``lib/model/faster_rcnn/resnet.py:105-288``), and ``res14``, the JAX
+package's test-only variant with one bottleneck a stage:
+
+  * :class:`FrozenBN`: every BatchNorm as the frozen affine
+    ``x · scale + (beta − mean · scale)``, ``scale = gamma · rsqrt(var +
+    eps)``, its four vectors buffers that no optimizer sees.
+  * :class:`ResNetFeatures`: the stem and layer1..layer3, stride 16 and 1024
+    channels, in ``channels_last`` like the VGG features. The graph is cut
+    after the stem and after layer1: ``backbone_for`` never passes
+    ``cfg.RESNET.FIXED_BLOCKS`` (``backbones.py:238-257``), so whatever the
+    config says, only the stem and layer1 are frozen, as in JAX.
+  * :class:`ResNetHead`: layer4 on the pooled RoIs, then the mean over the
+    bins, (R, 2048). It runs in ``channels_last`` like the backbone: it
+    copies the RoIAlign kernel's (R, C, P, P) output into (R, P, P, C) order
+    once, and the pooled gradient comes back (R, P, P, C)-contiguous, a
+    layout the backward kernel reads as it is. Run in the kernel's own NCHW
+    order, cuDNN transposed every layer4 convolution's input and output
+    instead.
+
+Each Bottleneck's ``conv3`` starts at zero (``init_weights`` of the
+detector, as ``kernel_init=zeros`` at ``backbones.py:157-158``): with every
+BN frozen, a random-init ResNet-101 otherwise diverges.
 """
 
 from __future__ import annotations
@@ -100,20 +124,158 @@ class VGG16Head(nn.Module):
         return x
 
 
+class FrozenBN(nn.Module):
+    """BatchNorm frozen to an affine map, over dim 1 of an NCHW tensor
+    (``backbones.py:97-122``). ``scale``, ``bias``, ``mean`` and ``var``
+    (gamma, beta and the running statistics) are buffers, at (1, 0, 0, 1)
+    until weights are loaded. The expression is JAX's, op for op."""
+
+    def __init__(self, features: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        for name, fill in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0),
+                           ("var", 1.0)):
+            self.register_buffer(name, torch.full((features,), fill,
+                                                  device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.scale * torch.rsqrt(self.var + self.eps)
+        shift = self.bias - self.mean * scale
+        return x * scale[:, None, None] + shift[:, None, None]
+
+
+class Bottleneck(nn.Module):
+    """1x1 → 3x3 (the stride) → 1x1 ×4, each behind a FrozenBN, plus the
+    residual, a 1x1 conv with the stride behind ``downsample_bn`` when
+    ``downsample`` (``backbones.py:124-170``). flax's ``SAME`` never pads a
+    1x1 stride-2 conv, so ``padding=0`` gives its size at odd inputs too."""
+
+    def __init__(self, in_ch: int, planes: int, stride: int = 1,
+                 downsample: bool = False, device=None):
+        super().__init__()
+        kw = dict(bias=False, device=device)
+        self.conv1 = nn.Conv2d(in_ch, planes, 1, **kw)
+        self.bn1 = FrozenBN(planes, device=device)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, **kw)
+        self.bn2 = FrozenBN(planes, device=device)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, **kw)
+        self.bn3 = FrozenBN(planes * 4, device=device)
+        if downsample:
+            self.downsample_conv = nn.Conv2d(in_ch, planes * 4, 1, stride,
+                                             **kw)
+            self.downsample_bn = FrozenBN(planes * 4, device=device)
+        self.downsample = downsample
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = (self.downsample_bn(self.downsample_conv(x))
+                    if self.downsample else x)
+        return F.relu(y + residual)
+
+
+# bottlenecks per stage (reference resnet.py:186-218); 14 is the JAX
+# package's test-only variant, one a stage
+RESNET_STAGES = {14: (1, 1, 1, 1), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3),
+                 152: (3, 8, 36, 3)}
+
+
+def _stage(module: nn.Module, stage: int, in_ch: int, planes: int,
+           blocks: int, stride: int, device) -> int:
+    """Add ``layer<stage>_0 ..`` to ``module``; returns the width out."""
+    for blk in range(blocks):
+        module.add_module(f"layer{stage}_{blk}", Bottleneck(
+            in_ch, planes, stride if blk == 0 else 1, blk == 0,
+            device=device))
+        in_ch = planes * 4
+    return in_ch
+
+
+class ResNetFeatures(nn.Module):
+    """conv1, bn1, ReLU, 3x3 stride-2 max pool, then layer1..layer3 → (B,
+    1024, H/16, W/16) (``backbones.py:177-210``). The stem and the stages
+    up to ``fixed_blocks`` are frozen: the graph is cut after each, and
+    their weights take no gradient."""
+
+    def __init__(self, depth: int = 101, fixed_blocks: int = 1, device=None):
+        super().__init__()
+        self.fixed_blocks = fixed_blocks
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False, device=device)
+        self.bn1 = FrozenBN(64, device=device)
+        self.conv1.requires_grad_(False)
+        ch = 64
+        for s, planes in enumerate((64, 128, 256)):
+            ch = _stage(self, s + 1, ch, planes, RESNET_STAGES[depth][s],
+                        1 if s == 0 else 2, device)
+            if s + 1 <= fixed_blocks:
+                for blk in range(RESNET_STAGES[depth][s]):
+                    getattr(self, f"layer{s + 1}_{blk}").requires_grad_(False)
+        self.out_channels = ch
+        self.stages = RESNET_STAGES[depth][:3]
+        self.tap_channels = (256, 512, 1024)          # layer1..layer3
+
+    def forward(self, x: torch.Tensor, *, return_taps: bool = False):
+        """x: (B, 3, H, W); returns the layer3 map, or with ``return_taps``
+        the layer1, layer2 and layer3 maps (strides 4, 8, 16)."""
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1).detach()       # the stem is frozen
+        taps = []
+        for s, blocks in enumerate(self.stages):
+            for blk in range(blocks):
+                x = getattr(self, f"layer{s + 1}_{blk}")(x)
+            if s + 1 <= self.fixed_blocks:
+                x = x.detach()
+            taps.append(x)
+        return tuple(taps) if return_taps else x
+
+
+class ResNetHead(nn.Module):
+    """layer4 on the pooled (R, P, P, C) RoIs, then the mean over the bins →
+    (R, 2048) (``backbones.py:213-227``), in ``channels_last`` (the detector
+    converts its weights): the pooled tensor is made (R, P, P, C)-contiguous
+    first, a copy when it is the kernel's (R, C, P, P) view. No dropout:
+    ``deterministic`` and ``rng`` are taken and unused, as ``VGG16Head``
+    takes them."""
+
+    def __init__(self, depth: int = 101, in_ch: int = 1024, device=None):
+        super().__init__()
+        self.blocks = RESNET_STAGES[depth][3]
+        _stage(self, 4, in_ch, 512, self.blocks, 2, device)
+
+    def forward(self, pooled: torch.Tensor, *, deterministic: bool = True,
+                rng=None) -> torch.Tensor:
+        del deterministic, rng
+        x = pooled.contiguous().permute(0, 3, 1, 2)   # NCHW, channels_last
+        for blk in range(self.blocks):
+            x = getattr(self, f"layer4_{blk}")(x)
+        return x.mean(dim=(2, 3))
+
+
+def backbone_dims(net: str) -> Tuple[int, int]:
+    """(feature_channels, head_dim) of a backbone name
+    (``backbones.py:230-235``)."""
+    return {"vgg16": (512, 4096), "vgg16_thin": (128, 512),
+            "res14": (1024, 2048), "res50": (1024, 2048),
+            "res101": (1024, 2048), "res152": (1024, 2048)}[net]
+
+
 def backbone_for(net: str, pool_size: int, device=None
                  ) -> Tuple[nn.Module, nn.Module, int, int]:
     """name → (features, head, feature_channels, head_dim).
 
     ``vgg16_thin`` is the width-0.25 variant (128-channel map, 512-wide
-    head) the JAX package's tests use."""
-    if net == "vgg16":
-        width, dim = 1.0, 4096
-    elif net == "vgg16_thin":
-        width, dim = 0.25, 512
-    else:
-        raise ValueError(f"backbone {net!r} is not ported yet "
-                         f"(vgg16, vgg16_thin)")
-    features = VGG16Features(width=width, device=device)
-    ch = features.out_channels
+    head) the JAX package's tests use; ``res14`` the ResNet one (one
+    bottleneck a stage, full widths)."""
+    if net not in ("vgg16", "vgg16_thin", "res14", "res50", "res101",
+                   "res152"):
+        raise ValueError(f"unknown backbone {net!r}")
+    ch, dim = backbone_dims(net)
+    if net.startswith("res"):
+        depth = int(net[3:])
+        return (ResNetFeatures(depth, device=device),
+                ResNetHead(depth, ch, device=device), ch, dim)
+    features = VGG16Features(width=1.0 if net == "vgg16" else 0.25,
+                             device=device)
     head = VGG16Head(ch * pool_size * pool_size, dim, device=device)
     return features, head, ch, dim

@@ -11,9 +11,9 @@ come in as NHWC BGR (``data/loader.py``), the feature map goes out as NHWC,
 RoIs are (B, N, 5).
 
 One layout change happens at the entry: the NHWC image batch is viewed as
-NCHW with ``channels_last`` strides, the backbone and RPN convolutions run
-in ``channels_last``, and the map comes back as an NHWC-contiguous view that
-the RoIAlign kernel reads without a copy.
+NCHW with ``channels_last`` strides, the backbone and RPN convolutions (and
+a ResNet's layer4 head) run in ``channels_last``, and the map comes back as
+an NHWC-contiguous view that the RoIAlign kernel reads without a copy.
 
 Training (``training=True``) draws its random numbers from a ``rng``
 argument, a :class:`tllod_torch.train.StepRandom`: the anchor-target and
@@ -34,7 +34,7 @@ from torch import nn
 
 from tllod_torch.config import Config
 from tllod_torch.device import resolve_device
-from tllod_torch.models.backbones import backbone_for
+from tllod_torch.models.backbones import Bottleneck, backbone_for
 from tllod_torch.models.rpn import (RoiSamples, RPNHead, anchor_target,
                                     proposal_layer, proposal_target,
                                     rpn_probs)
@@ -76,7 +76,8 @@ class FasterRCNN(nn.Module):
         backbone, head, feat_ch, head_dim = backbone_for(
             net, cfg.POOLING_SIZE, device=self.device)
         self.backbone = backbone.to(memory_format=torch.channels_last)
-        self.head = head
+        # ResNet's layer4 runs channels_last; VGG16's fc weights are 2-D
+        self.head = head.to(memory_format=torch.channels_last)
         self.dout_base_model = feat_ch
         self.head_dim = head_dim
         self.num_anchors = len(cfg.ANCHOR_SCALES) * len(cfg.ANCHOR_RATIOS)
@@ -98,7 +99,10 @@ class FasterRCNN(nn.Module):
     def init_weights(self, seed: int) -> None:
         """Random weights from ``seed``: He-normal convs and fc6/fc7,
         normal(0, 0.01) for the RPN and ``cls_score``, normal(0, 0.001) for
-        ``bbox_pred`` (reference ``faster_rcnn.py:129-131``), zero biases."""
+        ``bbox_pred`` (reference ``faster_rcnn.py:129-131``), zero biases.
+        A ResNet's bottleneck ``conv3`` starts at zero, so each residual
+        branch gives 0 (``backbones.py:157-158``); its FrozenBN buffers
+        keep (1, 0, 0, 1)."""
         g = torch.Generator(device=self.device).manual_seed(seed)
         for name, m in self.named_modules():
             if not isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -110,7 +114,11 @@ class FasterRCNN(nn.Module):
             else:
                 std = math.sqrt(2.0 / m.weight[0].numel())
             nn.init.normal_(m.weight, 0.0, std, generator=g)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        for m in self.modules():
+            if isinstance(m, Bottleneck):
+                nn.init.zeros_(m.conv3.weight)
 
     # ---- granular pieces (composed by DA method wrappers) ----
 
@@ -313,3 +321,9 @@ class FasterRCNN(nn.Module):
         return self.forward_from_features(base_feat, im_info, gt_boxes,
                                           training=training, rng=rng)
 
+
+def detection_loss(out: Dict[str, Any]) -> torch.Tensor:
+    """The supervised loss, rpn_cls + rpn_box + rcnn_cls + rcnn_box
+    (``tllod_tpu/models/faster_rcnn.py:295-300``)."""
+    return (out["rpn_loss_cls"] + out["rpn_loss_box"]
+            + out["rcnn_loss_cls"] + out["rcnn_loss_box"])

@@ -16,10 +16,16 @@ same way. A dense kernel is only transposed: the port's heads flatten in
 the order flax does (fc6 (C, H, W) by the torchvision layout, as the JAX
 backbone does; PA-ATF's CLUB fc (H, W, C), as flax's NHWC reshape).
 
+A FrozenBN's ``scale``, ``bias``, ``mean`` and ``var`` leaves become the
+buffers of the same names.
+
 :func:`load_pretrained_backbone` fills the backbone and box head from the
-caffe-pretrained ``vgg16_caffe.pth`` the reference trains from
-(``tllod_tpu/zoo.py:58-72, 143-178``): a torchvision-layout state dict,
-which applies unchanged because the head flattens in (C, H, W) order.
+caffe-pretrained file the reference trains from, by the JAX package's file
+names (``tllod_tpu/zoo.py:58-107, 143-178``): ``vgg16_caffe.pth`` or
+``resnet{50,101,152}_caffe.pth``, torchvision-layout state dicts. VGG16's
+applies unchanged because the head flattens in (C, H, W) order; a ResNet's
+goes through :func:`convert_resnet` (conv1..layer3 to the backbone, layer4
+to the head).
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from tllod_torch.models.backbones import RESNET_STAGES
 
 # torchvision VGG16 feature indices → the backbone's conv names
 _VGG_FEATURE_MAP = {
@@ -58,24 +66,65 @@ def convert_vgg16(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+PRETRAINED_FILES = {"vgg16": "vgg16_caffe.pth",
+                    "res50": "resnet50_caffe.pth",
+                    "res101": "resnet101_caffe.pth",
+                    "res152": "resnet152_caffe.pth"}
+
+
+def _bn(sd, src: str, dst: str) -> Dict[str, torch.Tensor]:
+    return {f"{dst}.scale": sd[f"{src}.weight"],
+            f"{dst}.bias": sd[f"{src}.bias"],
+            f"{dst}.mean": sd[f"{src}.running_mean"],
+            f"{dst}.var": sd[f"{src}.running_var"]}
+
+
+def convert_resnet(sd: Mapping[str, torch.Tensor], depth: int
+                   ) -> Dict[str, torch.Tensor]:
+    """torchvision ResNet state dict → ``backbone.*`` (conv1, bn1,
+    layer1..layer3) and ``head.layer4_<i>.*`` entries of the detector's
+    ``state_dict`` (``tllod_tpu/zoo.py:75-107``); the head's are left out
+    when ``sd`` has no layer4."""
+    out = {"backbone.conv1.weight": sd["conv1.weight"],
+           **_bn(sd, "bn1", "backbone.bn1")}
+    for stage, blocks in enumerate(RESNET_STAGES[depth], start=1):
+        if stage == 4 and "layer4.0.conv1.weight" not in sd:
+            break
+        root = "head" if stage == 4 else "backbone"
+        for i in range(blocks):
+            src, dst = f"layer{stage}.{i}", f"{root}.layer{stage}_{i}"
+            for c in (1, 2, 3):
+                out[f"{dst}.conv{c}.weight"] = sd[f"{src}.conv{c}.weight"]
+                out.update(_bn(sd, f"{src}.bn{c}", f"{dst}.bn{c}"))
+            if f"{src}.downsample.0.weight" in sd:
+                out[f"{dst}.downsample_conv.weight"] = \
+                    sd[f"{src}.downsample.0.weight"]
+                out.update(_bn(sd, f"{src}.downsample.1",
+                               f"{dst}.downsample_bn"))
+    return out
+
+
 def load_pretrained_backbone(module: nn.Module, net: str,
                              path: Optional[str] = None) -> bool:
-    """Fill a detector's backbone and head, or the convs of a bare
-    ``VGG16Features`` (ATF's ``backbone_anc``, as ``methods/da_runner.py:
-    87-91`` does), from ``vgg16_caffe.pth`` under ``$TLLOD_PRETRAINED_DIR``
-    (default ``pretrained_model/``). A missing file, or a net with no such
-    file (``vgg16_thin``), keeps the random init with a warning, as the JAX
-    CLI does; returns whether weights were loaded."""
-    path = path or os.path.join(pretrained_dir(), f"{net}_caffe.pth")
-    if net != "vgg16" or not os.path.exists(path):
+    """Fill a detector's backbone and head, or a bare backbone (ATF's
+    ``backbone_anc``, as ``methods/da_runner.py:87-91`` does), from the
+    net's caffe-pretrained file (:data:`PRETRAINED_FILES`) under
+    ``$TLLOD_PRETRAINED_DIR`` (default ``pretrained_model/``). A missing
+    file, or a net with none (``vgg16_thin``, ``res14``), keeps the random
+    init with a warning, as the JAX CLI does; returns whether weights were
+    loaded."""
+    fname = PRETRAINED_FILES.get(net)
+    path = path or os.path.join(pretrained_dir(), fname or f"{net}_caffe.pth")
+    if fname is None or not os.path.exists(path):
         print(f"WARNING: pretrained weights not found at {path}; keeping "
               f"random init")
         return False
     print(f"Loading pretrained weights from {path}")
-    sd = convert_vgg16(torch.load(path, map_location="cpu",
-                                  weights_only=True))
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    sd = (convert_vgg16(raw) if net == "vgg16"
+          else convert_resnet(raw, int(net[3:])))
     own = module.state_dict()
-    if "backbone.conv1_1.weight" not in own:          # a bare backbone
+    if not any(k.startswith("backbone.") for k in own):   # a bare backbone
         sd = {k[len("backbone."):]: v for k, v in sd.items()
               if k.startswith("backbone.")}
     for k, v in sd.items():
@@ -111,7 +160,7 @@ def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"unexpected kernel rank at {path}: "
                                  f"{val.shape}")
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf not in ("bias", "scale", "mean", "var"):
             raise ValueError(f"no counterpart for flax leaf {path}")
         sd[".".join(mods + [leaf])] = torch.from_numpy(np.array(val))
     return sd
