@@ -63,8 +63,10 @@ Phases, each ending the run nonzero on failure:
    ``train.train_step`` on one source and one target 600x1200 image with
    15 gt boxes each (TRAIN 12000 -> 2000 proposals, 256 sampled RoIs, the
    target under TEST 6000 -> 300). Launch counters are set to 0 before the
-   timed steps and read after; RoIAlignAvg, its backward and NMS must all
-   have launched, and the backward must not have copied its output
+   timed steps and read after; RoIAlignAvg, its backward and NMS must each
+   have launched once a step at each of the method's sites (the step's
+   RoIAlignAvg and proposal-NMS calls; a frozen teacher's RoIAlignAvg has no
+   backward), and the backward must not have copied its output
    gradient (``roi_align_avg_grad_copy`` 0). Prints every step's ten
    losses, ``loss`` and ``fg_cnt`` (all must be finite), the median ms/step
    and images/s, and a ``torch.profiler`` breakdown of one step
@@ -99,7 +101,14 @@ Phases, each ending the run nonzero on failure:
    forward and backward on the 1024-channel maps; its card-vs-CPU pair
    runs the whole step at 160x320 with each bottleneck's ``conv3`` drawn
    small (zero at JAX's init, which would zero every block's gradient) and
-   zeroed again for the timed steps.
+   zeroed again for the timed steps. Then MAD (``[mad]``), the domain
+   generalization step: VGG16 on two supervised 600x1200 source views (15
+   gt boxes each, other seeds), both under TRAIN 12000 -> 2000 and 256
+   sampled RoIs, epoch 1 in the first view's batch, and the multi-view
+   encoders and decoders on the map resized to 40x76 (274,580,661
+   parameters); RoIAlignAvg forward and backward and NMS each launch 2
+   times a step, and are held to the plain version at both views' sites;
+   its card-vs-CPU pair runs the whole step at 160x320.
    5b. The supervised step (``[faster_rcnn]``): full-width VGG16 on one
    600x1200 image through ``train.train_step`` with ``detection_loss``;
    counters reset before the 10 timed steps and read after (RoIAlignAvg,
@@ -1502,9 +1511,22 @@ REF_GRAD_TOTAL, REF_GRAD_MEDIAN, REF_GRAD_LEAF = 2e-3, 1e-3, 8e-3
 # the convs and fcs whose output goes through a ReLU
 RELU_FED = re.compile(r"(backbone(_anc)?\.conv\d_\d|rpn\.conv|head\.fc[67]|"
                       r"dc_ip[12]|img_da\w*\.(conv1|drm_conv|mask_conv1)|"
-                      r"club\d\.conv[12]|backbone\.bn1|layer\d_\d+\.bn[12])$")
+                      r"club\d\.conv[12]|backbone\.bn1|layer\d_\d+\.bn[12]|"
+                      r"img_(enc|dec)\d\.bn\d|img_dec\d\.deconv3|"
+                      r"ins_(enc|dec)\d\.fc[12])$")
 DET_KEYS = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls",
             "rcnn_loss_box")
+# MAD's three multi-view groups and its single-view terms, which are
+# reported and not in the loss
+MAD_GROUPS = (
+    ("detection", DET_KEYS),
+    ("image views", ("img_mv_recon_loss", "img_mv_cls_loss",
+                     "img_mv_dis_loss")),
+    ("instance views", ("ins_mv_recon_loss", "ins_mv_cls_loss",
+                        "ins_mv_dis_loss")),
+    ("consistency", ("mv_cst_loss",)),
+    ("single-view, not in the loss", ("da_img_loss", "da_ins_loss",
+                                      "da_cst_loss")))
 LOSS_KEYS = DET_KEYS + ("da_img_loss", "da_ins_loss", "da_cst_loss",
                         "tgt_da_img_loss", "tgt_da_ins_loss",
                         "tgt_da_cst_loss")
@@ -1523,7 +1545,11 @@ class TrainMethod(NamedTuple):
     ``classes``, ``cfg_pairs`` (None: phase 2's VGG16 Cityscapes config),
     ``train_hw`` and ``lr`` set the model, its config, its images and its
     SGD's rate; the decay, the bias rate and the clip follow the config and
-    the net, as ``utils.optim.build_optimizer`` sets them."""
+    the net, as ``utils.optim.build_optimizer`` sets them. MAD's fields:
+    ``supervised_pair`` (the second image is a supervised source view, so
+    it runs TRAIN's proposals too), ``epoch`` (the loss weight its first
+    batch carries) and ``loss_groups`` (how its step lines group the
+    losses)."""
     name: str
     tag: str
     model: str                       # class in tllod_torch.methods.<name>
@@ -1541,13 +1567,27 @@ class TrainMethod(NamedTuple):
     cfg_pairs: tuple = None
     train_hw: tuple = TRAIN_HW
     lr: float = 0.002
+    supervised_pair: bool = False
+    epoch: float = None
+    loss_groups: tuple = ()
 
     def loss(self, out):
         import importlib
         mod = importlib.import_module(f"tllod_torch.methods.{self.name}")
         if self.name == "pt_maf":
             return mod.pt_maf_loss(out, 0.1, out["kd_loss"])
+        if self.name == "mad":
+            return mod.mad_loss(out, out["epoch"])
         return getattr(mod, f"{self.name}_loss")(out)
+
+    def add_epoch(self, batch):
+        """The epoch weight in the first view's batch (MAD)."""
+        if self.epoch is not None:
+            import torch
+            batch["epoch"] = torch.full((batch["im_data"].shape[0],),
+                                        float(self.epoch),
+                                        device=batch["im_data"].device)
+        return batch
 
     def build(self, cfg, seed, device):
         """The model with weights from ``seed`` and the extra step
@@ -1616,6 +1656,15 @@ TRAIN_METHODS = (
                 classes=VOC_CLIPART_CLASSES,
                 cfg_pairs=tuple(RES101_VOC_CLIPART), train_hw=(600, 800),
                 lr=0.001),
+    # MAD: two supervised source views at epoch 1, so the multi-view terms
+    # weigh 0.12; limits about twice the larger reading of seeds 0 and 1
+    # (1.59e-4, 1.05e-4, 8.5e-3), rounded up as above: the view encoders'
+    # BatchStatNorm backward makes their gradients sums that cancel, so the
+    # worst parameter (img_enc3's conv0, or ln_img's bias) is 4x the others'
+    TrainMethod("mad", "mad", "MADModel",
+                sum((keys for _, keys in MAD_GROUPS), ()), ("s1", "s2"),
+                ("s1", "s2"), 1, (5e-4, 5e-4, 2e-2), supervised_pair=True,
+                epoch=1.0, loss_groups=MAD_GROUPS),
 )
 
 
@@ -1680,7 +1729,8 @@ def train_phase(spec, cfg, seed, out_dir):
     tag = spec.tag
     model, extra = spec.build(cfg, seed, dev)
     nc = len(spec.classes)
-    src = make_train_batch(*spec.train_hw, 1, seed + 10, cfg, dev, nc)
+    src = spec.add_epoch(make_train_batch(*spec.train_hw, 1, seed + 10, cfg,
+                                          dev, nc))
     tgt = make_train_batch(*spec.train_hw, 0, seed + 11, cfg, dev, nc)
     if spec.net.startswith("res"):
         calibrate_stem(model.detector, src["im_data"])
@@ -1698,13 +1748,19 @@ def train_phase(spec, cfg, seed, out_dir):
     t = cfg.TRAIN
     t_post = (t.RPN_POST_NMS_TOP_N if spec.target_post_train
               else cfg.TEST.RPN_POST_NMS_TOP_N)
+    second = (f"both views TRAIN {t.RPN_PRE_NMS_TOP_N}->"
+              f"{t.RPN_POST_NMS_TOP_N} rois, {t.BATCH_SIZE} sampled each"
+              if spec.supervised_pair else
+              f"TRAIN {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} rois, "
+              f"{t.BATCH_SIZE} sampled, TEST {cfg.TEST.RPN_PRE_NMS_TOP_N}->"
+              f"{t_post}")
     log(f"[{tag}] {spec.name.upper().replace('_', '-')} {spec.net} "
         f"{n_params} params ({n_train} trained), {nc} classes, "
-        f"1+1 images {spec.train_hw[0]}x{spec.train_hw[1]}, {TRAIN_GT} gt "
-        f"each, lr {spec.lr}, decay {cfg.TRAIN.WEIGHT_DECAY}, "
-        f"TRAIN {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} rois, "
-        f"{t.BATCH_SIZE} sampled, TEST {cfg.TEST.RPN_PRE_NMS_TOP_N}->"
-        f"{t_post}"
+        f"{'2 source views' if spec.supervised_pair else '1+1 images'} "
+        f"{spec.train_hw[0]}x{spec.train_hw[1]}, {TRAIN_GT} gt "
+        f"each, lr {spec.lr}, decay {cfg.TRAIN.WEIGHT_DECAY}, {second}"
+        + (f", epoch {spec.epoch}, img_size {model.img_size[0]}x"
+           f"{model.img_size[1]}" if spec.epoch is not None else "")
         + "".join(f", frozen teacher {sum(p.numel() for p in e.parameters())}"
                   f" params (seed {seed + TEACHER_SEED})" for e in extra))
 
@@ -1735,10 +1791,17 @@ def train_phase(spec, cfg, seed, out_dir):
     launches = dict(_kernels.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[{tag}] launches {launches}")
-    for name in ("roi_align_avg", "roi_align_avg_backward", "nms"):
-        if launches.get(name, 0) < 1:
-            raise RuntimeError(f"{spec.name} train path never launched "
-                               f"kernel {name}")
+    # each kernel exactly once a step at each of its sites (the teacher's
+    # RoIAlignAvg has no backward)
+    per_step = {"roi_align_avg": len(spec.roi_sites),
+                "roi_align_avg_backward": sum(site != "teacher" for site
+                                              in spec.roi_sites),
+                "nms": len(spec.nms_sites)}
+    for name, n in per_step.items():
+        if launches.get(name, 0) != n * TRAIN_STEPS:
+            raise RuntimeError(f"{spec.name} train path launched {name} "
+                               f"{launches.get(name, 0)} times in "
+                               f"{TRAIN_STEPS} steps, {n} a step expected")
     if launches.get("roi_align_avg_grad_copy", 0):
         raise RuntimeError(f"the RoIAlignAvg backward copied the output "
                            f"gradient on the {spec.name} train path")
@@ -1759,9 +1822,12 @@ def train_phase(spec, cfg, seed, out_dir):
         if not all(np.isfinite(v) for v in vals.values()):
             raise RuntimeError(f"non-finite {spec.name} train metrics at "
                                f"step {i}: {vals}")
+        groups = spec.loss_groups or (("losses", spec.loss_keys),)
         log(f"[{tag}] step {TRAIN_WARMUP + i}: {times[i]:.3f} ms | "
-            + ", ".join(f"{k} {vals[k]:.5f}" for k in spec.loss_keys)
-            + f", loss {vals['loss']:.5f}, fg_cnt {vals['fg_cnt']:.0f}")
+            + " | ".join(f"{label}: " + ", ".join(
+                f"{k} {vals[k]:.5f}" for k in keys)
+                for label, keys in groups)
+            + f" | loss {vals['loss']:.5f}, fg_cnt {vals['fg_cnt']:.0f}")
     ms = float(np.median(times))
     log(f"[{tag}] {ms:.3f} ms/step (median of {TRAIN_STEPS} steps), "
         f"{2000.0 / ms:.2f} images/s (2 per step), peak memory "
@@ -1905,6 +1971,11 @@ def _profile_train_step(step, i, out_dir, pool, channels, spec, gt_rows):
     log(f"[profile] layout copies around RoIAlignAvg: "
         f"{sum(ms for _, _, ms in copies):.4f} ms in {len(copies)} ops: "
         + "; ".join(f"{n} {sh} {ms:.4f} ms" for n, sh, ms in copies))
+    convs, conv_ms, n_convs = _conv_ops(trace)
+    log(f"[profile] convolution ops: {conv_ms:.3f} ms in {n_convs} ops; "
+        f"the top {len(convs)}:")
+    for ms, calls, op, dims, concrete in convs:
+        log(f"[profile]   {ms:.3f} ms {calls}x {op} {dims} {concrete}")
     pool_copies = []
     if spec.pool_sites:
         pool_copies = [cp for cp in _layout_copies(trace, 7, (256, 512))
@@ -1935,12 +2006,7 @@ def _layout_copies(trace_path, pool, channels):
                     or (tuple(sh[2:]) == (pool, pool) and sh[1] in channels)):
                 yield sh
 
-    copy_us: dict = {}
-    for ev in events:
-        if (ev.get("cat") == "kernel" and "copy" in ev.get("name", "").lower()
-                and "External id" in ev.get("args", {})):
-            ext = ev["args"]["External id"]
-            copy_us[ext] = copy_us.get(ext, 0.0) + ev.get("dur", 0.0)
+    copy_us = _kernel_us_by_op(events, lambda name: "copy" in name.lower())
     copies = []
     for ev in events:
         args = ev.get("args", {})
@@ -1952,6 +2018,43 @@ def _layout_copies(trace_path, pool, channels):
             copies.append((ev["name"], shapes,
                            copy_us[args["External id"]] / 1e3))
     return copies
+
+
+def _kernel_us_by_op(events, keep=lambda name: True):
+    """Device µs of the trace's kernels named as ``keep`` accepts, summed
+    by the "External id" that names the op that launched them."""
+    us: dict = {}
+    for ev in events:
+        if (ev.get("cat") == "kernel" and keep(ev.get("name", ""))
+                and "External id" in ev.get("args", {})):
+            ext = ev["args"]["External id"]
+            us[ext] = us.get(ext, 0.0) + ev.get("dur", 0.0)
+    return us
+
+
+def _conv_ops(trace_path, n=12):
+    """The convolution ops of a trace recorded with shapes (forward,
+    transposed, backward), grouped by op, input shapes and arguments
+    (stride, padding, dilation, transposed): the device ms of their
+    kernels and the calls. Returns (the top ``n`` groups by ms as (ms,
+    calls, op, shapes, arguments), the total ms of all, the op count)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    us = _kernel_us_by_op(events)
+    groups: dict = {}
+    for ev in events:
+        args = ev.get("args", {})
+        if (ev.get("cat") == "cpu_op" and "conv" in ev["name"]
+                and args.get("External id") in us):
+            key = (ev["name"],
+                   str([d for d in args.get("Input Dims", ()) if d]),
+                   str([c for c in args.get("Concrete Inputs", ()) if c]))
+            ms, calls = groups.get(key, (0.0, 0))
+            groups[key] = (ms + us[args["External id"]] / 1e3, calls + 1)
+    ranked = sorted(((ms, calls, *key) for key, (ms, calls)
+                     in groups.items()), key=lambda g: -g[0])
+    return (ranked[:n], sum(g[0] for g in ranked),
+            sum(g[1] for g in ranked))
 
 
 def _capture_train(spec, model, extra, src, tgt):
@@ -2112,6 +2215,7 @@ def _train_hooks(m, record_terms: bool):
     hook handles)."""
     from torch import nn
     from tllod_torch.methods.da_modules import InstanceDA
+    from tllod_torch.methods.mad import BatchStatNorm, ConvTranspose
     from tllod_torch.methods.us_daf import InstanceDAScale
     from tllod_torch.models.backbones import FrozenBN
 
@@ -2128,16 +2232,19 @@ def _train_hooks(m, record_terms: bool):
         return hook
 
     for name, mod in m.named_modules():
-        if not isinstance(mod, (nn.Conv2d, nn.Linear, FrozenBN)):
+        if not isinstance(mod, (nn.Conv2d, nn.Linear, FrozenBN,
+                                BatchStatNorm, ConvTranspose)):
             continue
         relu = bool(RELU_FED.search(name))
+        bias = getattr(mod, "bias", None)
         biased = (record_terms and not isinstance(mod, FrozenBN)
-                  and mod.bias is not None and mod.bias.requires_grad)
+                  and bias is not None and bias.requires_grad)
         if not (relu or biased):
             continue
 
         def fwd(mod, inp, out, name=name, relu=relu, biased=biased,
-                ch_dim=1 if isinstance(mod, nn.Conv2d) else -1):
+                ch_dim=1 if isinstance(mod, (nn.Conv2d, BatchStatNorm))
+                else -1):
             if relu:      # before the in-place ReLU that follows the conv
                 rec["signs"].setdefault(name, []).append((out > 0).cpu())
             if biased and out.requires_grad:  # not under no_grad
@@ -2162,7 +2269,8 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
 
     s = seed + 20 + 3 * k
     hw = spec.ref_hw
-    src = make_train_batch(*hw, 1, s, cfg, "cuda", len(spec.classes))
+    src = spec.add_epoch(make_train_batch(*hw, 1, s, cfg, "cuda",
+                                          len(spec.classes)))
     tgt = make_train_batch(*hw, 0, s + 1, cfg, "cuda", len(spec.classes))
     # noise images: the flat rectangles of the timed images tie inside max
     # pool windows, and the CPU and the card route such a tie's gradient to

@@ -89,12 +89,17 @@ def run_da_training(method_name: str, model_ctor: Callable,
 
 def train_loop(method_name: str, model, loss_fn: Callable,
                loaders: Sequence[DetectionLoader], step_args: Callable,
-               args, cfg, *, meta: Optional[dict] = None) -> int:
+               args, cfg, *, meta: Optional[dict] = None,
+               epoch_batches: Optional[Callable] = None) -> int:
     """The epoch loop every train CLI runs: ``min(len(loader))`` steps an
     epoch, each ``train_step`` on ``step_args(*batches)``, one device batch
-    from each loader; the reference SGD from ``args``; ``--r`` resume;
+    from each loader; the reference SGD from ``args``; ``--r`` resume, from
+    ``args.loadname`` under the output dir when it is given (``.pth``
+    added), else ``<method>_<checksession>_<checkepoch>_<checkpoint>.pth``;
     a checkpoint every ``--save_epoch_interval`` epochs and at the end.
-    Returns the last step reached."""
+    ``epoch_batches(epoch, batches)``, called on each step's host batches
+    before they go to the device, adds per-epoch fields to them (MAD's
+    ``epoch``). Returns the last step reached."""
     steps_per_epoch = min(len(loader) for loader in loaders)
     schedule, opt = build_optimizer(args, cfg, model, steps_per_epoch)
 
@@ -102,8 +107,12 @@ def train_loop(method_name: str, model, loss_fn: Callable,
     os.makedirs(output_dir, exist_ok=True)
     step = 0
     if args.resume:
-        path = os.path.join(output_dir, f"{method_name}_{args.checksession}_"
-                            f"{args.checkepoch}_{args.checkpoint}.pth")
+        name = getattr(args, "loadname", None)
+        if name and not name.endswith(".pth"):
+            name += ".pth"
+        path = os.path.join(output_dir, name or (
+            f"{method_name}_{args.checksession}_{args.checkepoch}_"
+            f"{args.checkpoint}.pth"))
         ckpt_epoch, step = resume_train_state(model, opt, path)
         args.start_epoch = ckpt_epoch + 1
         print(f"resumed from {path} (epoch {ckpt_epoch}, step {step})")
@@ -120,7 +129,10 @@ def train_loop(method_name: str, model, loss_fn: Callable,
             if args.max_steps:
                 todo = min(todo, max(0, args.max_steps - step))
             for _ in range(todo):
-                batches = [_to_device(next(it), model.device) for it in its]
+                batches = [next(it) for it in its]
+                if epoch_batches is not None:
+                    batches = epoch_batches(epoch, batches)
+                batches = [_to_device(b, model.device) for b in batches]
                 metrics = train_step(model, loss_fn, opt,
                                      step_args(*batches),
                                      seed=cfg.RNG_SEED, step=step)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import os
 from typing import Callable, Dict
 
+from tllod_torch.data.union import make_union_dataset
 from tllod_torch.data.voc import CLASS_SETS, VOCDetection
 
 _REGISTRY: Dict[str, Callable[[], VOCDetection]] = {}
@@ -121,12 +122,19 @@ _register_defaults()
 
 def get_dataset(name: str) -> VOCDetection:
     """Instantiate a registered dataset (reference ``get_imdb``,
-    ``factory.py:69-74``)."""
+    ``factory.py:69-74``). Unregistered names are tried against the MAD DG
+    union pattern ``{Main}_{Sub1}_{Sub2}_{type}_{year}_{split}``
+    (:mod:`tllod_torch.data.union`, as ``tllod_tpu/data/factory.py:
+    175-189``)."""
     if name in _REGISTRY:
         return _REGISTRY[name]()
+    ds = make_union_dataset(name, data_dir(),
+                            cache_dir=os.path.join(data_dir(), "cache"))
+    if ds is not None:
+        return ds
     raise KeyError(f"Unknown dataset: {name!r}. Known: {sorted(_REGISTRY)} "
-                   f"(COCO, ImageNet, VG and DG-union sets are not ported "
-                   f"yet)")
+                   f"or a DG-union pattern (COCO, ImageNet and VG sets are "
+                   f"not ported yet)")
 
 
 def list_datasets():
