@@ -39,9 +39,17 @@ Phases, each ending the run nonzero on failure:
    plain version and ``nms_numpy``, with the time of each of its kernels
    (the sort of unsorted scores, the mask, the scan), the kept count and
    the 64-box tiles the scan went through.
-   The RoIPool kernel (``POOLING_MODE='pool'``, off the eval path) is held
+   The RoIPool forward (``POOLING_MODE='pool'``, off the eval path) is held
    to its plain version on the eval-batch-1 map and RoIs, float32
-   ``torch.equal``.
+   ``torch.equal``, at every channel-chunk width (``lanes``) that takes the
+   map; then, on that map and on its tie map, phase 4's edge RoIs and
+   regime sets, RoIPool's own edges (zero-padded gt rows, bins that clip
+   empty), all of them with the eval RoIs at P = 3 and 15, and the eval
+   RoIs on the map cut to C = 509, each through the forward (exact) and the
+   backward (within 1e-5 of autograd through the plain version). RoIPool
+   times are device times: ``graph_ms``, calls through the C interface
+   captured in a CUDA graph and replayed (the backward's zero fill
+   included).
    Then adversarial NMS problems (N = 1, 63, 64, 65, 12000, 196608;
    max_output in the middle of a tile and above N; identical boxes; no
    overlaps; invalid scores, all or interleaved; tied scores; thresholds 0
@@ -91,7 +99,8 @@ Phases, each ending the run nonzero on failure:
    the target's sampled proposals and three CLUB heads on the 50 gt RoIs
    pooled by RoIPool from c3/c4/c5, so the RoIPool forward and backward
    kernels must each launch 3 times a step; both are held to the plain
-   version on each tap's own tensors and on a forced-tie map, and the
+   version on each tap's own tensors and on a forced-tie map, at every
+   chunk width, and timed as in phase 4, and the
    sampled proposal layer card against CPU on a problem whose NMS keeps
    more than a quarter of postN; its card-vs-CPU pair runs at 320x640 (its
    mask convolutions need a stride-16 map of 20 pixels a side). Then US-DAF
@@ -248,6 +257,27 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms of one ``fn()``: ``reps`` calls captured in one CUDA graph
+    and replayed between CUDA events, so no host time sits between the
+    launches (``fn`` must launch on the current stream when called)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -446,8 +476,8 @@ def main() -> int:
     #         their kernels, card vs CPU, profile; then the supervised step
     summaries = {}
     for spec in TRAIN_METHODS:
-        train_kernels, summaries[spec.name] = train_phase(spec, cfg,
-                                                          args.seed, args.out)
+        train_kernels, summaries[spec.name] = train_phase(
+            spec, cfg, args.seed, args.out)
         kernels += train_kernels
         torch.cuda.empty_cache()
     supervised = supervised_phase(cfg, args.seed, args.out)
@@ -877,40 +907,49 @@ def _roi_align_sets(feat, main_rois, kw, prefix=""):
     return records
 
 
-def roi_pool_launcher(feat, rois, kw, grad=None):
-    """A call that launches one RoIPool kernel through its C interface and
-    nothing else (no checks, no allocation, no count): the forward on the
-    map ``feat``, or with ``grad`` the backward into a map gradient zeroed
-    once. Timed back to back with ``cuda_ms`` it gives the kernel's own
-    time."""
+def roi_pool_launcher(feat, rois, kw, grad=None, lanes=None):
+    """A call that runs one RoIPool C call and nothing else (no checks, no
+    allocation, no count); its result lands in ``call.out``. The forward on
+    the map ``feat``; or, with ``grad``, the backward: both of its device
+    passes, the map gradient's zero fill and the kernel adding into it, so
+    the time includes every write of the map gradient. ``lanes`` (8, 16 or
+    32) overrides the wrapper's ``lanes`` rule. ``graph_ms`` of it gives
+    the device time; ``cuda_ms`` adds the host's gaps between calls."""
     import torch
     from tllod_torch.ops import _kernels
-    from tllod_torch.ops.roi_pool import _lib
+    from tllod_torch.ops import roi_pool as rp
 
-    lib = _lib()
+    lib = rp._lib()
     b, h, w, c = feat.shape
     r, p = rois.shape[0], kw["out_size"]
     scale = float(kw["spatial_scale"])
-    stream = torch.cuda.current_stream().cuda_stream
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
     if grad is None:
         out = torch.empty((r, p, p, c), device=feat.device)
-        keep = (feat, rois, out)
+        vec = rp.vector_width(c, feat)
+        n = lanes or rp.lanes(c, p, vec)
+        keep = (feat, rois)
 
         def call():
             _kernels.check(lib, lib.tllod_roi_pool_forward(
                 feat.data_ptr(), rois.data_ptr(), out.data_ptr(), b, h, w, c,
-                r, p, scale, stream), "roi_pool")
+                r, p, scale, vec, n, stream()), "roi_pool")
     else:
         g = grad.contiguous()
-        out = torch.zeros((b, h, w, c), device=feat.device)
-        keep = (g, feat, rois, out)
+        out = torch.empty((b, h, w, c), device=feat.device)
+        vec = rp.vector_width(c, feat, g)
+        n = lanes or rp.lanes(c, p, vec, backward=True)
+        keep = (g, feat, rois)
 
         def call():
             _kernels.check(lib, lib.tllod_roi_pool_backward(
                 g.data_ptr(), feat.data_ptr(), rois.data_ptr(),
-                out.data_ptr(), b, h, w, c, r, p, scale, stream),
+                out.data_ptr(), b, h, w, c, r, p, scale, vec, n, stream()),
                 "roi_pool_backward")
-    call.keep = keep
+    call.keep, call.out = keep, out
     return call
 
 
@@ -941,35 +980,62 @@ def _tie_map(feat):
     return torch.round(feat / feat.std()).contiguous()
 
 
-def _roi_pool_forward_check(label, feat, rois, kw):
-    """The forward kernel against the plain version, float32 bit-equal;
-    returns the kernel's output."""
+def _lane_widths(feat, p, backward=False):
+    """The kernels' channel chunks (``lanes`` 8 and, with 16-byte loads,
+    16 for P <= 32 and 32 for P <= 16) that take this map, the wrapper's
+    choice for the direction first."""
+    from tllod_torch.ops.roi_pool import lanes, vector_width
+
+    vec = vector_width(feat.shape[-1], feat)
+    picked = lanes(feat.shape[-1], p, vec, backward)
+    legal = [n for n, most in ((8, 64), (16, 32), (32, 16))
+             if p <= most and (n == 8 or vec == 4)]
+    return [picked] + [n for n in legal if n != picked]
+
+
+def _roi_pool_forward_check(label, feat, rois, kw, widths):
+    """The forward through the wrapper and, through the C interface, at
+    each chunk width in ``widths``, each float32 bit-equal to the plain
+    version (computed once). Returns the wrapper's output."""
     import torch
     from tllod_torch.ops.roi_pool import roi_pool, roi_pool_plain
 
-    got = roi_pool(feat, rois, **kw)
     want = roi_pool_plain(feat, rois, **kw)
+    outs = [("wrapper", roi_pool(feat, rois, **kw))]
+    for n in widths:
+        call = roi_pool_launcher(feat, rois, kw, lanes=n)
+        call()
+        outs.append((n, call.out))
     torch.cuda.synchronize()
-    if got.shape != want.shape or not torch.equal(got, want):
-        err = (got - want).abs().max().item() if got.numel() else 0.0
-        raise RuntimeError(f"roi_pool {label}: max err {err}")
-    return got
+    for n, got in outs:
+        if got.shape != want.shape or not torch.equal(got, want):
+            err = (got - want).abs().max().item() if got.numel() else 0.0
+            raise RuntimeError(f"roi_pool {label} (lanes {n}): max err "
+                               f"{err}")
+    return outs[0][1]
 
 
 def _roi_pool_entry(label, feat, rois, kw, launches):
-    """The RoIPool forward kernel on ``feat`` and on its tie map, each
-    ``torch.equal`` to the plain version; timed alone (CUDA events around
-    50 launches through its C interface), through the wrapper and the plain
-    version."""
+    """The RoIPool forward on ``feat`` and on its tie map, each
+    ``torch.equal`` to the plain version through the wrapper and at each
+    channel-chunk width that takes the map; its device time (``graph_ms``
+    of calls through its C interface) at each width, CUDA events around 50
+    such calls back to back (``event_ms``, the host's gaps included), the
+    wrapper and the plain version."""
     from tllod_torch.ops.roi_pool import roi_pool, roi_pool_plain
 
-    got = _roi_pool_forward_check(label, feat, rois, kw)
-    _roi_pool_forward_check(f"{label} (tie map)", _tie_map(feat), rois, kw)
-    w_ms = cuda_ms(lambda: roi_pool(feat, rois, **kw), reps=50)
-    k_ms = cuda_ms(roi_pool_launcher(feat, rois, kw), reps=50)
-    p_ms = cuda_ms(lambda: roi_pool_plain(feat, rois, **kw), reps=3)
     b, h, w, c = feat.shape
     r, p = rois.shape[0], kw["out_size"]
+    widths = _lane_widths(feat, p)
+    got = _roi_pool_forward_check(label, feat, rois, kw, widths)
+    _roi_pool_forward_check(f"{label} (tie map)", _tie_map(feat), rois, kw,
+                            widths)
+    w_ms = cuda_ms(lambda: roi_pool(feat, rois, **kw), reps=50)
+    lanes_ms = {n: graph_ms(roi_pool_launcher(feat, rois, kw, lanes=n))
+                for n in widths}
+    event_ms = cuda_ms(roi_pool_launcher(feat, rois, kw), reps=50)
+    k_ms = lanes_ms[widths[0]]
+    p_ms = cuda_ms(lambda: roi_pool_plain(feat, rois, **kw), reps=3)
     covered, area = _roi_pool_work(feat.shape, rois, kw)
     # each distinct pixel read once, the output written once; one compare
     # per channel of every pixel of every bin
@@ -977,53 +1043,74 @@ def _roi_pool_entry(label, feat, rois, kw, launches):
     e = _entry("roi_pool", f"{label}: float32 map {b}x{h}x{w}x{c}, {r} "
                f"rois, P={p}", launches, 0.0, k_ms, p_ms, nbytes, area * c,
                exact=True, tie_map_exact=True, wrapper_ms=w_ms,
+               event_ms=event_ms, lanes=widths[0], lanes_ms=lanes_ms,
                distinct_map_pixels=covered, bin_pixels=area)
-    log(f"[parity] roi_pool {e['shape']}: exact (and on its tie map), "
-        f"kernel {k_ms:.4f} ms (wrapper {w_ms:.4f}), plain {p_ms:.3f} ms, "
-        f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), {covered} map "
-        f"pixels read, {area} bin pixels")
+    e["share_of_bound"] = e["bound_ms"] / k_ms
+    log(f"[parity] roi_pool {e['shape']}: exact (and on its tie map, lanes "
+        + "/".join(map(str, widths)) + f"), kernel {k_ms:.4f} ms (lanes "
+        + ", ".join(f"{n}: {t:.4f}" for n, t in lanes_ms.items())
+        + f"; events {event_ms:.4f}, wrapper {w_ms:.4f})"
+        + f", plain {p_ms:.3f} ms, bound {e['bound_ms']:.4f} ms "
+        f"({e['bound_by']}, {100 * e['share_of_bound']:.0f}% of it), "
+        f"{covered} map pixels read, {area} bin pixels")
     return e
 
 
-def _roi_pool_backward_check(label, feat, rois, grad, kw):
-    """The backward kernel against autograd through the plain version:
-    within atol = 1e-5 * max|want|, rtol 1e-5 (atomic order over
-    overlapping bins moves the last bits). Returns (max error, max |want|,
-    the plain version's graph for timing)."""
+def _roi_pool_backward_check(label, feat, rois, grad, kw, widths):
+    """The backward through the wrapper and, through the C interface, at
+    each chunk width in ``widths``, each against autograd through the
+    plain version (computed once): within atol = 1e-5 * max|want|, rtol
+    1e-5 (atomic order over overlapping bins moves the last bits). Returns
+    (max error, max |want|, the plain version's graph for timing)."""
     import torch
     from tllod_torch.ops.roi_pool import roi_pool_backward, roi_pool_plain
 
     f = feat.clone().requires_grad_(True)
     out = roi_pool_plain(f, rois, **kw)
     (want,) = torch.autograd.grad(out, f, grad, retain_graph=True)
-    got = roi_pool_backward(grad, feat, rois, **kw)
+    gots = [("wrapper", roi_pool_backward(grad, feat, rois, **kw))]
+    for n in widths:
+        call = roi_pool_launcher(feat, rois, kw, grad, n)
+        call()
+        gots.append((n, call.out))
     torch.cuda.synchronize()
     scale = want.abs().max().item()
-    err = (got - want).abs().max().item()
-    if not torch.allclose(got, want, atol=1e-5 * scale, rtol=1e-5):
-        raise RuntimeError(f"roi_pool_backward {label}: max err {err} (max "
-                           f"|want| {scale})")
+    err = 0.0
+    for n, got in gots:
+        e = (got - want).abs().max().item()
+        err = max(err, e)
+        if not torch.allclose(got, want, atol=1e-5 * scale, rtol=1e-5):
+            raise RuntimeError(f"roi_pool_backward {label} (lanes {n}): max "
+                               f"err {e} (max |want| {scale})")
     return err, scale, (out, f)
 
 
 def _roi_pool_backward_entry(label, feat, rois, grad, kw, launches):
-    """The RoIPool backward kernel on the train path's own (map, RoIs,
-    output gradient), and on the tie map, each against the plain version's
-    autograd; timed as the forward is."""
+    """The RoIPool backward on the train path's own (map, RoIs, output
+    gradient), and on the tie map, each against the plain version's
+    autograd, through the wrapper and at each chunk width. ``kernel_ms``
+    is the device time (``graph_ms``) of every pass of one backward call
+    (``roi_pool_launcher`` with ``grad``: the zero fill and the kernel),
+    held against a bound that counts the whole map gradient's write."""
     import torch
     from tllod_torch.ops.roi_pool import roi_pool_backward
 
+    p = kw["out_size"]
+    widths = _lane_widths(feat, p, backward=True)
     err, scale, (out, f) = _roi_pool_backward_check(label, feat, rois, grad,
-                                                    kw)
+                                                    kw, widths)
     tie_err, tie_scale, _ = _roi_pool_backward_check(
-        f"{label} (tie map)", _tie_map(feat), rois, grad, kw)
+        f"{label} (tie map)", _tie_map(feat), rois, grad, kw, widths)
     w_ms = cuda_ms(lambda: roi_pool_backward(grad, feat, rois, **kw),
                    reps=50)
-    k_ms = cuda_ms(roi_pool_launcher(feat, rois, kw, grad), reps=50)
+    lanes_ms = {n: graph_ms(roi_pool_launcher(feat, rois, kw, grad, n))
+                for n in widths}
+    event_ms = cuda_ms(roi_pool_launcher(feat, rois, kw, grad), reps=50)
+    k_ms = lanes_ms[widths[0]]
     p_ms = cuda_ms(lambda: torch.autograd.grad(out, f, grad,
                                                retain_graph=True), reps=3)
     b, h, w, c = feat.shape
-    r, p = rois.shape[0], kw["out_size"]
+    r = rois.shape[0]
     covered, area = _roi_pool_work(feat.shape, rois, kw)
     # the map's read pixels and the output gradient read once, the map
     # gradient written once; per bin pixel and channel a max and a tie test
@@ -1034,13 +1121,82 @@ def _roi_pool_backward_entry(label, feat, rois, grad, kw, launches):
                2 * area * c, tolerance={"atol": 1e-5 * scale, "rtol": 1e-5},
                max_abs_want=scale, tie_map_max_abs_err=tie_err,
                tie_map_max_abs_want=tie_scale, wrapper_ms=w_ms,
+               event_ms=event_ms, lanes=widths[0], lanes_ms=lanes_ms,
                distinct_map_pixels=covered, bin_pixels=area)
+    e["share_of_bound"] = e["bound_ms"] / k_ms
     log(f"[train-parity] roi_pool_backward {e['shape']}: max err {err:.3g} "
         f"(max |want| {scale:.3g}; tie map {tie_err:.3g} of "
-        f"{tie_scale:.3g}), kernel {k_ms:.4f} ms (wrapper {w_ms:.4f}), "
-        f"plain {p_ms:.3f} ms, bound {e['bound_ms']:.4f} ms "
-        f"({e['bound_by']})")
+        f"{tie_scale:.3g}), kernel {k_ms:.4f} ms (fill and kernel; lanes "
+        + ", ".join(f"{n}: {t:.4f}" for n, t in lanes_ms.items())
+        + f"; events {event_ms:.4f}, wrapper {w_ms:.4f})"
+        + f", plain {p_ms:.3f} ms, bound {e['bound_ms']:.4f} ms "
+        f"({e['bound_by']}, {100 * e['share_of_bound']:.0f}% of it)")
     return e
+
+
+def _pool_edge_rois(feat, kw):
+    """RoIPool's own edges: zero-padded gt rows (1x1 at (0, 0) of the
+    first and last image) and RoIs whose outer bins clip empty past the
+    map's last row and column or before its first."""
+    import torch
+
+    b, h, w, _ = feat.shape
+    s = 1.0 / kw["spatial_scale"]
+    return torch.tensor(
+        [[0, 0, 0, 0, 0]] * 4 + [[b - 1, 0, 0, 0, 0]] + [
+            [0, (w - 3) * s, (h - 3) * s, (w + 30) * s, (h + 30) * s],
+            [0, -30 * s, -30 * s, 2 * s, 2 * s],
+            [0, (w - 2) * s, 0, (w + 40) * s, 4 * s],
+        ], dtype=torch.float32, device=feat.device)
+
+
+def _roi_pool_sets(feat, main_rois, kw):
+    """Phase 4's edge RoIs and regime sets, RoIPool's own edges (padded gt
+    rows, bins that clip empty) at the main path's P, then all of them with
+    the main path's RoIs at P = 3 and P = 15, and the main path's RoIs on
+    the map cut to a channel count that is not a multiple of 4: each
+    through the forward (``torch.equal`` on the map and its tie map) and
+    the backward (within 1e-5 of autograd through the plain version, on
+    both maps), through the wrapper and at each chunk width that takes the
+    map. Returns their records."""
+    import torch
+
+    sets = {"edge rois": (_edge_rois(feat, kw), kw),
+            "padded gt rows, clipped bins": (_pool_edge_rois(feat, kw), kw),
+            **{k: (v, kw) for k, v in _regime_rois(feat, kw).items()}}
+    every = torch.cat([main_rois, *(rois for rois, _ in sets.values())])
+    for p in (3, 15):
+        sets[f"main path, edge and regimes, P={p}"] = (
+            every, dict(kw, out_size=p))
+    odd = feat[..., :feat.shape[-1] - 3].contiguous()
+    rng = torch.Generator(device=feat.device).manual_seed(13)
+    records = []
+    for label, (rois, skw) in [*sets.items(),
+                               ("main path, C % 4 = 1", (main_rois, kw))]:
+        f = odd if label.endswith("C % 4 = 1") else feat
+        p = skw["out_size"]
+        widths = _lane_widths(f, p)
+        tie = _tie_map(f)
+        g = torch.randn((rois.shape[0], p, p, f.shape[-1]),
+                        device=f.device, generator=rng)
+        errs = []
+        for name, m in ((label, f), (f"{label} (tie map)", tie)):
+            _roi_pool_forward_check(name, m, rois, skw, widths)
+            errs.append(_roi_pool_backward_check(name, m, rois, g, skw,
+                                                 widths)[:2])
+        covered, area = _roi_pool_work(f.shape, rois, skw)
+        rec = {"set": label, "rois": rois.shape[0], "out_size": p,
+               "channels": f.shape[-1], "lanes": widths,
+               "bwd_max_abs_err": max(e for e, _ in errs),
+               "bwd_max_abs_want": max(s for _, s in errs),
+               "distinct_map_pixels": covered, "bin_pixels": area}
+        records.append(rec)
+        log(f"[parity] roi_pool {label}: {rec['rois']} rois, P={p}, C="
+            f"{rec['channels']}: forward exact (lanes "
+            + "/".join(map(str, widths)) + ", and on the tie map); backward "
+            f"err {rec['bwd_max_abs_err']:.3g} of "
+            f"{rec['bwd_max_abs_want']:.3g} (both maps)")
+    return records
 
 
 def _sampled_proposal_check(model, cfg, seed=7):
@@ -1302,6 +1458,7 @@ def kernel_parity(model, ims, info, launches):
             # POOLING_MODE='pool' is off the eval path: no launches there
             entries.append(_roi_pool_entry(
                 "eval RoIs, POOLING_MODE='pool'", feat, rois, kw, 0))
+            entries[-1]["sets"] = _roi_pool_sets(feat, rois, kw)
         else:
             # the main path runs float32: the bf16 variant has no launches
             entries.append(_roi_align_entry(feat, rois, kw, torch.bfloat16,

@@ -5,7 +5,10 @@ overlapping bins in different orders), at strides 4/8/16, P = 7 and 3,
 batch 1 and 2, on float maps and on maps with forced ties, with RoIs that
 are degenerate, reach outside the map, are zero-padded gt rows or have
 extents on exact bin boundaries. Then the separable tie split, the
-out-of-range batch index and the CPU path of the wrapper."""
+out-of-range batch index and the CPU path of the wrapper. Last, the CUDA
+wrapper's load-width and chunk-width rules, on the CPU. The kernels
+themselves run only on the card, where ``chip_smoke.py`` holds them to
+the plain version."""
 
 import numpy as np
 import jax
@@ -16,8 +19,9 @@ import torch
 from tllod_tpu.ops.roi_pool import roi_pool as j_roi_pool
 
 from tllod_torch.ops import _kernels
-from tllod_torch.ops.roi_pool import (roi_bins, roi_pool, roi_pool_backward,
-                                      roi_pool_plain)
+from tllod_torch.ops.roi_pool import (lanes, roi_bins, roi_pool,
+                                      roi_pool_backward, roi_pool_plain,
+                                      vector_width)
 
 
 def _rois(rs, b, h, w, stride, p, n=24):
@@ -136,3 +140,28 @@ def test_roi_pool_cpu_takes_the_plain_version_and_kernels_need_cuda():
         roi_pool_backward(got, feat, rois, out_size=7, spatial_scale=1 / 16)
     empty = roi_pool_plain(feat, rois[:0], out_size=7, spatial_scale=1 / 16)
     assert empty.shape == (0, 7, 7, 8)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_lanes_rule_thresholds(backward):
+    """32 lanes (128 channels a block) from 512 channels at P <= 16; below
+    that 16 forward (P <= 32) and 8 backward; 8 with 1-channel loads. Each
+    choice stays within the kernel's own limit P <= 2 * 256 / lanes."""
+    narrow = 8 if backward else 16
+    cases = [(512, 7, 4, 32), (1024, 16, 4, 32), (508, 7, 4, narrow),
+             (256, 7, 4, narrow), (512, 17, 4, narrow),
+             (256, 33, 4, 8), (509, 7, 1, 8), (512, 7, 1, 8)]
+    for c, p, vec, want in cases:
+        got = lanes(c, p, vec, backward)
+        assert got == want, (c, p, vec, got)
+        assert p <= 2 * 256 // got
+
+
+def test_vector_width_needs_c_multiple_of_4_and_16_byte_alignment():
+    base = torch.zeros(4096)
+    assert vector_width(8, base[:64].view(1, 2, 4, 8)) == 4
+    assert vector_width(6, base[:48].view(1, 2, 4, 6)) == 1
+    shifted = base[1:65].view(1, 2, 4, 8)         # 4 bytes past a boundary
+    assert vector_width(8, shifted) == 1
+    assert vector_width(8, base[:64].view(1, 2, 4, 8), shifted) == 1
+    assert vector_width(8, base[4:68].view(1, 2, 4, 8)) == 4

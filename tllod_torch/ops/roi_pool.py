@@ -25,11 +25,15 @@ batch loop does (``roi_pool.py:73-81``: no image selects it, so image 0's
 value stays); RoIAlign gives zeros there instead.
 
 For CUDA tensors :func:`roi_pool` is a ``torch.autograd.Function`` over the
-two kernels of ``csrc/roi_pool.cu`` (float32): the forward writes (R, P, P,
-C), which PA-ATF's CLUB heads read as the channels-last NCHW view with no
-copy; the backward recomputes each bin and adds its share into a zeroed
-float32 map gradient with atomics. The RoIs get no gradient. CPU tensors run
-:func:`roi_pool_plain`, which autograd differentiates.
+kernels of ``csrc/roi_pool.cu`` (float32), a block per RoI bin row and
+channel chunk (:func:`lanes`), with 16-byte loads when C % 4 == 0 and the
+data is 16-byte aligned (:func:`vector_width`). The forward writes (R, P,
+P, C), which PA-ATF's CLUB heads read as the channels-last NCHW view with
+no copy. The backward is one call of two device passes: the map gradient
+zeroed, then each bin row's share added into the pixels that hold its
+column maxima with atomics (the sum order over overlapping bins varies by
+run). The RoIs get no gradient. CPU tensors run :func:`roi_pool_plain`,
+which autograd differentiates.
 
 Layouts are the JAX package's: ``feats`` (B, H, W, C), the NHWC view of a
 ``channels_last`` map; ``rois`` (R, 5) in input-image coordinates; the
@@ -43,6 +47,29 @@ import ctypes
 import torch
 
 from tllod_torch.ops import _kernels
+
+
+def vector_width(c: int, *tensors: torch.Tensor) -> int:
+    """4 (16-byte loads of 4 channels) when C % 4 == 0 and every tensor's
+    data starts on a 16-byte boundary, else 1."""
+    if c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return 4
+    return 1
+
+
+def lanes(c: int, p: int, vec: int, backward: bool = False) -> int:
+    """Lanes of a kernel block's channel chunk, each 4 channels of 16-byte
+    loads (``vec`` 4) or 1: 32 (128 channels a block) for at least 512
+    channels and P <= 16; else, with 16-byte loads, 16 for the forward (P
+    <= 32) and 8 for the backward; else 8. Wide chunks cut a deep map's
+    blocks; narrow ones give a wide RoI's columns more of the block's 256
+    threads (the fastest of the three at each of PA-ATF's taps on an
+    H100)."""
+    if vec != 4:
+        return 8
+    if c >= 512 and p <= 16:
+        return 32
+    return 16 if not backward and p <= 32 else 8
 
 
 def _bin_ranges(lo: torch.Tensor, extent: torch.Tensor, p: int, limit: int):
@@ -167,10 +194,11 @@ def roi_pool_forward(feats: torch.Tensor, rois: torch.Tensor, *,
     r = rois.shape[0]
     out = torch.empty((r, out_size, out_size, c), dtype=torch.float32,
                       device=feats.device)
+    vec = vector_width(c, feats)
     lib = _lib()
     status = lib.tllod_roi_pool_forward(
         feats.data_ptr(), rois.data_ptr(), out.data_ptr(), b, h, w, c, r,
-        out_size, float(spatial_scale),
+        out_size, float(spatial_scale), vec, lanes(c, out_size, vec),
         torch.cuda.current_stream(feats.device).cuda_stream)
     _kernels.check(lib, status, "roi_pool")
     _kernels.launches["roi_pool"] += 1
@@ -180,9 +208,10 @@ def roi_pool_forward(feats: torch.Tensor, rois: torch.Tensor, *,
 def roi_pool_backward(grad_out: torch.Tensor, feats: torch.Tensor,
                       rois: torch.Tensor, *, out_size: int,
                       spatial_scale: float) -> torch.Tensor:
-    """The backward kernel: (R, P, P, C) output gradient and the forward's
-    map → float32 (B, H, W, C) map gradient, accumulated with atomics (the
-    sum order over overlapping bins varies by run). A gradient that is not
+    """The backward: (R, P, P, C) output gradient and the forward's map →
+    float32 (B, H, W, C) map gradient, zeroed and accumulated with atomics
+    in one C call (one launch count for its two device passes; the sum
+    order over overlapping bins varies by run). A gradient that is not
     (R, P, P, C)-contiguous is copied first, counted in
     ``_kernels.launches["roi_pool_grad_copy"]``."""
     _check("roi_pool_backward", feats, rois, out_size)
@@ -198,11 +227,14 @@ def roi_pool_backward(grad_out: torch.Tensor, feats: torch.Tensor,
     if not grad_out.is_contiguous():
         _kernels.launches["roi_pool_grad_copy"] += 1
         grad_out = grad_out.contiguous()
-    grad = torch.zeros((b, h, w, c), dtype=torch.float32, device=feats.device)
+    grad = torch.empty((b, h, w, c), dtype=torch.float32,
+                       device=feats.device)
+    vec = vector_width(c, feats, grad_out, grad)
     lib = _lib()
     status = lib.tllod_roi_pool_backward(
         grad_out.data_ptr(), feats.data_ptr(), rois.data_ptr(),
-        grad.data_ptr(), b, h, w, c, r, out_size, float(spatial_scale),
+        grad.data_ptr(), b, h, w, c, r, out_size, float(spatial_scale), vec,
+        lanes(c, out_size, vec, backward=True),
         torch.cuda.current_stream(feats.device).cuda_stream)
     _kernels.check(lib, status, "roi_pool_backward")
     _kernels.launches["roi_pool_backward"] += 1
@@ -214,9 +246,9 @@ def _lib():
     if lib.tllod_roi_pool_forward.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tllod_roi_pool_forward.argtypes = [vp, vp, vp, i, i, i, i, i, i,
-                                               f, vp]
+                                               f, i, i, vp]
         lib.tllod_roi_pool_backward.argtypes = [vp, vp, vp, vp, i, i, i, i,
-                                                i, i, f, vp]
+                                                i, i, f, i, i, vp]
         for fn in (lib.tllod_roi_pool_forward, lib.tllod_roi_pool_backward):
             fn.restype = ctypes.c_int
     return lib
