@@ -117,7 +117,22 @@ Phases, each ending the run nonzero on failure:
    encoders and decoders on the map resized to 40x76 (274,580,661
    parameters); RoIAlignAvg forward and backward and NMS each launch 2
    times a step, and are held to the plain version at both views' sites;
-   its card-vs-CPU pair runs the whole step at 160x320.
+   its card-vs-CPU pair runs the whole step at 160x320. Then IDF
+   (``[idf]``): two VGG16 branches a 600x1200 image (blocks 1-3, 4, 5 with
+   the attention between them), on a source and a target image with 15 gt
+   boxes each (the target's stand in for pseudo labels), separation 1, so
+   ``se_loss`` counts; the source, the target's primary pass on zeroed gt
+   and the auxiliary detector on the target's private map each run TRAIN
+   12000 -> 2000 and sample 256 RoIs, so RoIAlignAvg forward and backward
+   and NMS each launch exactly 3 times a step, held to the plain version at
+   each site (286,733,224 parameters); its card-vs-CPU pair runs the whole
+   step at 160x320.
+   5c. IDF's eval (``[idf-eval]``): ``IDFInfer``, both branches and the
+   detector's RPN and head on the invariant map, over phase 2's images
+   through ``eval_engine.detect_chunks`` at eval batch 1: RoIAlignAvg once
+   and NMS twice an image exactly, ms/image, busy share, finite detections
+   and VOC AP; then RoIAlignAvg and both NMS problems of one image held to
+   their plain versions.
    5b. The supervised step (``[faster_rcnn]``): full-width VGG16 on one
    600x1200 image through ``train.train_step`` with ``detection_loss``;
    counters reset before the 10 timed steps and read after (RoIAlignAvg,
@@ -472,25 +487,32 @@ def main() -> int:
     kernels += res_kernels
     torch.cuda.empty_cache()
 
-    # ---- 5. train: the DAF, MAF, ATF, PT-MAF, PA-ATF and US-DAF steps,
-    #         their kernels, card vs CPU, profile; then the supervised step
+    # ---- 5. train: the DAF, MAF, ATF, PT-MAF, PA-ATF, US-DAF, MAD and IDF
+    #         steps, their kernels, card vs CPU, profile; then IDF's eval
+    #         and the supervised step
     summaries = {}
     for spec in TRAIN_METHODS:
         train_kernels, summaries[spec.name] = train_phase(
             spec, cfg, args.seed, args.out)
         kernels += train_kernels
         torch.cuda.empty_cache()
+    idf_kernels, idf_eval = idf_eval_phase(cfg, args.seed, ims, info, roidb,
+                                           args.out)
+    kernels += idf_kernels
+    torch.cuda.empty_cache()
     supervised = supervised_phase(cfg, args.seed, args.out)
     log("[train] summary: " + "; ".join(
         f"{name} {s['ms_per_step']:.3f} ms/step, busy {s['busy_ms']:.3f} ms, "
         f"peak {s['peak_memory_gib']:.2f} GiB" for name, s in summaries.items())
         + f"; faster_rcnn {supervised['ms_per_step']:.3f} ms/step, busy "
-        f"{supervised['busy_ms']:.3f} ms")
+        f"{supervised['busy_ms']:.3f} ms; idf eval "
+        f"{idf_eval['ms_per_image']:.3f} ms/image, busy "
+        f"{idf_eval['busy_ms']:.3f} ms")
     with open(os.path.join(args.out, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_image_ms": per_image_ms,
                    "res101_eval": res_eval,
                    "train": summaries.pop("daf"), "methods": summaries,
-                   "faster_rcnn": supervised,
+                   "faster_rcnn": supervised, "idf_eval": idf_eval,
                    "nms_adversarial": adversarial}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
 
@@ -591,9 +613,10 @@ def check_reference(model, cfg, seed: int) -> None:
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
 
 
-def _capture(model, ims, info):
+def _capture(model, ims, info, head=None):
     """Run the main path once with the kernel wrappers wrapped to record
-    their inputs; returns the recorded calls by site."""
+    their inputs; returns the recorded calls by site. ``head`` is the box
+    head whose flatten is checked (default ``model.head``)."""
     import torch
     import tllod_torch.models.faster_rcnn as frcnn
     import tllod_torch.models.rpn as rpn
@@ -612,7 +635,7 @@ def _capture(model, ims, info):
     frcnn.roi_align_avg = recorder("roi_align", saved[0])
     rpn.nms_fixed_batched = recorder("rpn_nms", saved[1])
     train.nms_fixed_batched = recorder("cls_nms", saved[2])
-    hook = model.head.register_forward_pre_hook(_flatten_is_view)
+    hook = (head or model.head).register_forward_pre_hook(_flatten_is_view)
     try:
         from tllod_torch.eval_engine import detect_chunks
         with torch.inference_mode():
@@ -1666,7 +1689,8 @@ REF_PAIRS = 3               # noise-image pairs of the card-vs-CPU train check
 # the worst one
 REF_GRAD_TOTAL, REF_GRAD_MEDIAN, REF_GRAD_LEAF = 2e-3, 1e-3, 8e-3
 # the convs and fcs whose output goes through a ReLU
-RELU_FED = re.compile(r"(backbone(_anc)?\.conv\d_\d|rpn\.conv|head\.fc[67]|"
+RELU_FED = re.compile(r"(backbone(_anc|_b)?\.conv\d_\d|rpn(_aux)?\.conv|"
+                      r"head(_aux)?\.fc[67]|netd_(\d(_b)?|da)\.bn\d|"
                       r"dc_ip[12]|img_da\w*\.(conv1|drm_conv|mask_conv1)|"
                       r"club\d\.conv[12]|backbone\.bn1|layer\d_\d+\.bn[12]|"
                       r"img_(enc|dec)\d\.bn\d|img_dec\d\.deconv3|"
@@ -1684,6 +1708,14 @@ MAD_GROUPS = (
     ("consistency", ("mv_cst_loss",)),
     ("single-view, not in the loss", ("da_img_loss", "da_ins_loss",
                                       "da_cst_loss")))
+# IDF's losses and its six branch distances, reported and not in the loss
+IDF_GROUPS = (
+    ("detection", DET_KEYS),
+    ("aux detection", tuple(f"aux_{k}" for k in DET_KEYS)),
+    ("domain", ("adv_loss", "nonadv_loss", "ins_loss")),
+    ("separation", ("se_loss",)),
+    ("distances, not in the loss", tuple(f"dist{k}_{d}" for d in "st"
+                                         for k in (1, 2, 3))))
 LOSS_KEYS = DET_KEYS + ("da_img_loss", "da_ins_loss", "da_cst_loss",
                         "tgt_da_img_loss", "tgt_da_ins_loss",
                         "tgt_da_cst_loss")
@@ -1706,7 +1738,10 @@ class TrainMethod(NamedTuple):
     ``supervised_pair`` (the second image is a supervised source view, so
     it runs TRAIN's proposals too), ``epoch`` (the loss weight its first
     batch carries) and ``loss_groups`` (how its step lines group the
-    losses)."""
+    losses). IDF's: ``separation`` (the ``se_loss`` gate its source batch
+    carries) and ``all_train`` (every proposal site under TRAIN's
+    proposals and sampling: the target's on zeroed gt, the auxiliary
+    detector's on the target's pseudo labels)."""
     name: str
     tag: str
     model: str                       # class in tllod_torch.methods.<name>
@@ -1727,6 +1762,8 @@ class TrainMethod(NamedTuple):
     supervised_pair: bool = False
     epoch: float = None
     loss_groups: tuple = ()
+    separation: float = None
+    all_train: bool = False
 
     def loss(self, out):
         import importlib
@@ -1737,12 +1774,15 @@ class TrainMethod(NamedTuple):
             return mod.mad_loss(out, out["epoch"])
         return getattr(mod, f"{self.name}_loss")(out)
 
-    def add_epoch(self, batch):
-        """The epoch weight in the first view's batch (MAD)."""
-        if self.epoch is not None:
-            import torch
-            batch["epoch"] = torch.full((batch["im_data"].shape[0],),
-                                        float(self.epoch),
+    def add_fields(self, batch):
+        """The epoch weight in the first view's batch (MAD), the separation
+        gate in the source batch (IDF)."""
+        import torch
+        for key, value in (("epoch", self.epoch),
+                           ("separation", self.separation)):
+            if value is not None:
+                batch[key] = torch.full((batch["im_data"].shape[0],),
+                                        float(value),
                                         device=batch["im_data"].device)
         return batch
 
@@ -1822,6 +1862,18 @@ TRAIN_METHODS = (
                 sum((keys for _, keys in MAD_GROUPS), ()), ("s1", "s2"),
                 ("s1", "s2"), 1, (5e-4, 5e-4, 2e-2), supervised_pair=True,
                 epoch=1.0, loss_groups=MAD_GROUPS),
+    # IDF: the source, the target's primary pass (zeroed gt) and the
+    # auxiliary detector on the target's private map, each under TRAIN
+    # 12000 -> 2000 with 256 sampled RoIs; separation 1, so se_loss counts;
+    # limits about twice the larger reading of seeds 0 and 1 (6.1e-4,
+    # 6.6e-6, 7.7e-3), rounded up as above: the worst are netd_1_b's
+    # BatchStatNorm-fed gradients on the 40x80 map, where 30-42 ReLUs of
+    # 6.9e7 land on opposite sides of the kink on the card and the CPU
+    TrainMethod("idf", "idf", "IDFModel",
+                sum((keys for _, keys in IDF_GROUPS), ()),
+                ("source", "target", "aux"), ("source", "target", "aux"), 1,
+                (2e-3, 2e-5, 2e-2), separation=1.0, all_train=True,
+                loss_groups=IDF_GROUPS),
 )
 
 
@@ -1886,8 +1938,8 @@ def train_phase(spec, cfg, seed, out_dir):
     tag = spec.tag
     model, extra = spec.build(cfg, seed, dev)
     nc = len(spec.classes)
-    src = spec.add_epoch(make_train_batch(*spec.train_hw, 1, seed + 10, cfg,
-                                          dev, nc))
+    src = spec.add_fields(make_train_batch(*spec.train_hw, 1, seed + 10,
+                                           cfg, dev, nc))
     tgt = make_train_batch(*spec.train_hw, 0, seed + 11, cfg, dev, nc)
     if spec.net.startswith("res"):
         calibrate_stem(model.detector, src["im_data"])
@@ -1908,6 +1960,10 @@ def train_phase(spec, cfg, seed, out_dir):
     second = (f"both views TRAIN {t.RPN_PRE_NMS_TOP_N}->"
               f"{t.RPN_POST_NMS_TOP_N} rois, {t.BATCH_SIZE} sampled each"
               if spec.supervised_pair else
+              f"source, target (zeroed gt) and aux (the target's gt as "
+              f"pseudo labels) each TRAIN {t.RPN_PRE_NMS_TOP_N}->"
+              f"{t.RPN_POST_NMS_TOP_N} rois, {t.BATCH_SIZE} sampled"
+              if spec.all_train else
               f"TRAIN {t.RPN_PRE_NMS_TOP_N}->{t.RPN_POST_NMS_TOP_N} rois, "
               f"{t.BATCH_SIZE} sampled, TEST {cfg.TEST.RPN_PRE_NMS_TOP_N}->"
               f"{t_post}")
@@ -1918,6 +1974,8 @@ def train_phase(spec, cfg, seed, out_dir):
         f"each, lr {spec.lr}, decay {cfg.TRAIN.WEIGHT_DECAY}, {second}"
         + (f", epoch {spec.epoch}, img_size {model.img_size[0]}x"
            f"{model.img_size[1]}" if spec.epoch is not None else "")
+        + (f", separation {spec.separation}" if spec.separation is not None
+           else "")
         + "".join(f", frozen teacher {sum(p.numel() for p in e.parameters())}"
                   f" params (seed {seed + TEACHER_SEED})" for e in extra))
 
@@ -2031,6 +2089,89 @@ def train_phase(spec, cfg, seed, out_dir):
                        roi_pool_copies=pool_copies,
                        sampled_proposals=sampled)
     return entries, summary
+
+
+def idf_eval_phase(cfg, seed, ims, info, roidb, out_dir):
+    """Phase 5c (``[idf-eval]``): IDF's own eval forward, ``IDFInfer``
+    (both branches with their attention, then the detector's RPN and head
+    on the invariant map), full-width VGG16 with random weights from
+    ``seed``, over phase 2's images through ``eval_engine.detect_chunks``
+    at eval batch 1: ms/image (the median of REPS passes after a warm-up,
+    TF32 convolutions as cuDNN's default), the launches (RoIAlignAvg once
+    and NMS twice an image, exactly), finite detections and VOC AP, a
+    profile of one pass; then RoIAlignAvg and both NMS problems of one
+    image held to their plain versions (TF32 off). Returns (kernel
+    entries, summary)."""
+    import torch
+    from tllod_torch.data.evaluate import evaluate_detections_roidb
+    from tllod_torch.eval_engine import detect_chunks
+    from tllod_torch.methods.idf import IDFInfer, IDFModel
+    from tllod_torch.ops import _kernels
+
+    model = IDFModel(len(CLASSES), cfg, "vgg16", device="cuda", seed=seed)
+    infer = IDFInfer(model)
+    n = len(ims)
+    log(f"[idf-eval] IDF vgg16 {sum(p.numel() for p in model.parameters())} "
+        f"params (both branches run), {n} images {ims.shape[1]}x"
+        f"{ims.shape[2]}, eval_bs 1, TEST {cfg.TEST.RPN_PRE_NMS_TOP_N}->"
+        f"{cfg.TEST.RPN_POST_NMS_TOP_N} rois")
+
+    def detect():
+        return detect_chunks(infer, chunks_of(ims, info, 1), cfg,
+                             num_classes=len(CLASSES))
+
+    torch.backends.cudnn.allow_tf32 = True          # the defaults, as eval
+    detect()
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        res = detect()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / n)
+    launches = dict(_kernels.launches)
+    log(f"[idf-eval] launches {launches}")
+    for name, per_image in (("roi_align_avg", 1), ("nms", 2)):
+        if launches.get(name, 0) != per_image * n * REPS:
+            raise RuntimeError(f"IDF eval launched {name} "
+                               f"{launches.get(name, 0)} times over "
+                               f"{n * REPS} images, {per_image} an image "
+                               f"expected")
+    n_dets = 0
+    for per_class in res.values():
+        for dets in per_class:
+            if dets.shape[1:] != (5,) or not np.isfinite(dets).all():
+                raise RuntimeError("IDF eval: non-finite or mis-shaped "
+                                   "detections")
+            n_dets += len(dets)
+    aps = evaluate_detections_roidb(
+        SynthDataset(CLASSES), roidb,
+        [[res[i][c] for i in range(n)] for c in range(len(CLASSES))])
+    if not np.isfinite(aps["mAP"]):
+        raise RuntimeError("IDF eval: mAP is not finite")
+    ms = float(np.median(times))
+    log(f"[idf-eval] eval_bs 1: {ms:.3f} ms/image (median of {REPS} "
+        f"passes), {n_dets} detections, VOC07 mAP {aps['mAP']:.4f} (random "
+        f"weights)")
+    busy, wall, kinds = _profile_window(
+        detect, f"idf eval_bs 1, {n} images",
+        os.path.join(out_dir, "chip_smoke_idf_eval_trace.json"))
+
+    torch.backends.cudnn.allow_tf32 = False
+    calls = _capture(infer, ims[:1], info[:1], head=model.detector.head)
+    (feat, rois), kw = calls["roi_align"][0]
+    entries = [_roi_align_entry(feat, rois, kw, torch.float32,
+                                launches["roi_align_avg"], label="idf eval")]
+    for label, site in (("idf proposal", "rpn_nms"),
+                        ("idf postprocess", "cls_nms")):
+        (boxes, scores), nkw = calls[site][0]
+        entries.append(_nms_entry(label, boxes, scores, nkw,
+                                  launches["nms"]))
+    return entries, {"ms_per_image": ms, "pass_ms_per_image": times,
+                     "launches": launches, "detections": n_dets,
+                     "mAP": aps["mAP"], "busy_ms": busy,
+                     "profiled_wall_ms": wall, "busy_ms_by_kind": kinds}
 
 
 def supervised_phase(cfg, seed, out_dir):
@@ -2254,8 +2395,10 @@ def _capture_train(spec, model, extra, src, tgt):
 
     frcnn.roi_align_avg, rpn.nms_fixed_batched = wrapped, nms
     pa_atf.roi_pool = pool
-    hooks = [m.detector.head.register_forward_pre_hook(_flatten_is_view)
-             for m in (model,)] + [
+    heads = [model.detector.head] + (
+        [model.head_aux] if hasattr(model, "head_aux") else [])
+    hooks = [h.register_forward_pre_hook(_flatten_is_view)
+             for h in heads] + [
         t.head.register_forward_pre_hook(_flatten_is_view) for t in extra]
     try:
         out = model(src, tgt, *extra, training=True,
@@ -2407,7 +2550,8 @@ def _train_hooks(m, record_terms: bool):
             if biased and out.requires_grad:  # not under no_grad
                 out.register_hook(add_terms(name + ".bias", ch_dim))
         handles.append(mod.register_forward_hook(fwd))
-    if isinstance(m.ins_da, (InstanceDA, InstanceDAScale)):   # sigmoids
+    if isinstance(getattr(m, "ins_da", None),
+                  (InstanceDA, InstanceDAScale)):           # sigmoids
         handles.append(m.ins_da.register_forward_hook(
             lambda mod, inp, out: rec["probs"].append(
                 out.detach().float().cpu())))
@@ -2426,7 +2570,7 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
 
     s = seed + 20 + 3 * k
     hw = spec.ref_hw
-    src = spec.add_epoch(make_train_batch(*hw, 1, s, cfg, "cuda",
+    src = spec.add_fields(make_train_batch(*hw, 1, s, cfg, "cuda",
                                           len(spec.classes)))
     tgt = make_train_batch(*hw, 0, s + 1, cfg, "cuda", len(spec.classes))
     # noise images: the flat rectangles of the timed images tie inside max

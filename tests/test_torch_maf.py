@@ -56,13 +56,18 @@ DA_KEYS = ("da_img_loss", "da_ins_loss", "tgt_da_img_loss",
 FROZEN = ("detector.backbone.conv1_", "detector.backbone.conv2_")
 
 
-def record_jax_step(monkeypatch, loss_fn, params):
+def record_jax_step(monkeypatch, loss_fn, params, *, modules=(j_frcnn,),
+                    cotangents=None):
     """``jax.value_and_grad`` of ``loss_fn(p) -> (loss, out)``, run eagerly
     with its sampling keys and dropout masks recorded. Returns (loss, out,
     grads, sampling, masks): ``sampling`` the uniforms each
     ``anchor_target`` (2) and ``proposal_target`` (4) call drew, one list
     per call in call order, as the port takes them; ``masks`` the keep
-    masks in draw order."""
+    masks in draw order. ``modules`` name the modules whose
+    ``anchor_target`` and ``proposal_target`` are recorded (IDF's
+    auxiliary detector calls its own imports). With ``cotangents``,
+    ``loss`` is a tuple of values and ``grads`` one pullback of one
+    forward per cotangent (``jax.vjp``)."""
     sampling = []
 
     def anchor_target(gt_boxes, im_info, anchors, cfg, key, _fn=None):
@@ -79,10 +84,11 @@ def record_jax_step(monkeypatch, loss_fn, params):
                          for k, m in zip(ks, (n, n, s, s))])
         return _fn(rois, gt_boxes, cfg, key)
 
-    for name, fn in (("anchor_target", anchor_target),
-                     ("proposal_target", proposal_target)):
-        monkeypatch.setattr(j_frcnn, name, lambda *a, _w=fn,
-                            _o=getattr(j_frcnn, name): _w(*a, _fn=_o))
+    for mod in modules:
+        for name, fn in (("anchor_target", anchor_target),
+                         ("proposal_target", proposal_target)):
+            monkeypatch.setattr(mod, name, lambda *a, _w=fn,
+                                _o=getattr(mod, name): _w(*a, _fn=_o))
 
     masks = []
 
@@ -101,7 +107,12 @@ def record_jax_step(monkeypatch, loss_fn, params):
         with nn.intercept_methods(record_dropout):
             return loss_fn(p)
 
-    (loss, out), grads = jax.value_and_grad(wrapped, has_aux=True)(params)
+    if cotangents is None:
+        (loss, out), grads = jax.value_and_grad(wrapped, has_aux=True)(
+            params)
+    else:
+        loss, pull, out = jax.vjp(wrapped, params, has_aux=True)
+        grads = [pull(c)[0] for c in cotangents]
     return loss, out, grads, sampling, masks
 
 
@@ -134,13 +145,17 @@ def check_step(out, loss, j_out, j_loss, keys, rng):
     assert set(step_metrics(out, loss)) == set(keys) | {"loss", "fg_cnt"}
 
 
-def check_grads(model, j_grads, seam=()):
+def check_grads(model, j_grads, seam=(), cancel=lambda name: False):
     """Every parameter's gradient within rtol 1e-4 and atol 5e-5 × its
     largest entry. The detector's conv1-2 are frozen: no gradient, none in
     JAX either. The ``seam`` prefixes name parameters cut from the graph by
     the backbone's detach that still train (ATF's ``backbone_anc``
     conv1-2): no gradient, zero in JAX. A gradient that is zero in JAX
-    (a PT-MAF group with no pixels) must be zero in the port."""
+    (a PT-MAF group with no pixels) must be zero in the port. A bias that
+    ``cancel`` names feeds a batch-statistics norm, whose backward removes
+    the mean over the rows and positions: its gradient is a sum whose
+    terms cancel to 0 exactly, so both sides must be 0 within the rounding
+    of that sum (``check_cancelled``)."""
     want = from_jax_params(jax.tree_util.tree_map(np.asarray, j_grads))
     named = dict(model.named_parameters())
     assert set(want) == set(named)
@@ -152,9 +167,23 @@ def check_grads(model, j_grads, seam=()):
             assert not np.asarray(w).any(), name
             continue
         g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if cancel(name):
+            check_cancelled(name, g, w, want[name[:-len("bias")] + "weight"])
+            continue
         scale = float(w.abs().max())
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
                                    atol=5e-5 * scale, err_msg=name)
+
+
+def check_cancelled(name, got, want, weight_grad):
+    """A gradient that is 0 in exact arithmetic: both sides within 1e-4 ×
+    the largest gradient entry of the layer's weight, the sums of the same
+    terms times the layer's inputs, of which a sum that did not cancel
+    would be of the order."""
+    bound = 1e-4 * float(weight_grad.abs().max())
+    assert bound > 0, name
+    assert float(got.abs().max()) <= bound, name
+    assert float(want.abs().max()) <= bound, name
 
 
 @pytest.mark.parametrize("scale", [2, 4])

@@ -90,7 +90,8 @@ def run_da_training(method_name: str, model_ctor: Callable,
 def train_loop(method_name: str, model, loss_fn: Callable,
                loaders: Sequence[DetectionLoader], step_args: Callable,
                args, cfg, *, meta: Optional[dict] = None,
-               epoch_batches: Optional[Callable] = None) -> int:
+               epoch_batches: Optional[Callable] = None,
+               after_step: Optional[Callable] = None) -> int:
     """The epoch loop every train CLI runs: ``min(len(loader))`` steps an
     epoch, each ``train_step`` on ``step_args(*batches)``, one device batch
     from each loader; the reference SGD from ``args``; ``--r`` resume, from
@@ -99,7 +100,9 @@ def train_loop(method_name: str, model, loss_fn: Callable,
     a checkpoint every ``--save_epoch_interval`` epochs and at the end.
     ``epoch_batches(epoch, batches)``, called on each step's host batches
     before they go to the device, adds per-epoch fields to them (MAD's
-    ``epoch``). Returns the last step reached."""
+    ``epoch``, IDF's ``separation``); ``after_step(step, epoch, metrics)``
+    sees each step's metrics, still on the device (IDF's records).
+    Returns the last step reached."""
     steps_per_epoch = min(len(loader) for loader in loaders)
     schedule, opt = build_optimizer(args, cfg, model, steps_per_epoch)
 
@@ -138,6 +141,8 @@ def train_loop(method_name: str, model, loss_fn: Callable,
                                      seed=cfg.RNG_SEED, step=step)
                 step += 1
                 logger.update(step, epoch, schedule(step), metrics)
+                if after_step is not None:
+                    after_step(step, epoch, metrics)
             done = ((args.max_steps and step >= args.max_steps)
                     or epoch == args.max_epochs)
             if done or epoch % max(1, args.save_epoch_interval) == 0:

@@ -17,7 +17,9 @@ Parameter names follow the flax tree (``conv1_1`` … ``conv5_3``, ``fc6``,
 name for name. ``frozen_blocks=2`` freezes conv1-2 as ``backbones.py:69-70``
 does: the graph is cut after block 2 and those weights take no gradient.
 ``return_taps`` gives the c3/c4/c5 maps MAF, ATF and PT-MAF put their image
-discriminators on (``backbones.py:71-73``); ``stage_range`` comes with IDF.
+discriminators on (``backbones.py:71-73``); ``stage_range=(lo, hi)`` runs
+conv blocks ``[lo, hi)`` alone, so IDF can attend across its two branches
+between blocks (``backbones.py:51-76``).
 
 The ResNet-50/101/152 backbones (``backbones.py:97-227``; reference
 ``lib/model/faster_rcnn/resnet.py:105-288``), and ``res14``, the JAX
@@ -76,12 +78,19 @@ class VGG16Features(nn.Module):
         self.out_channels = in_ch
         self.tap_channels = tuple(widths[2:])          # c3, c4, c5
 
-    def forward(self, x: torch.Tensor, *, return_taps: bool = False):
+    def forward(self, x: torch.Tensor, *, return_taps: bool = False,
+                stage_range: Tuple[int, int] = (0, 5)):
         """x: (B, 3, H, W), NCHW; returns (B, C, H/16, W/16), or with
         ``return_taps`` the conv3_3, conv4_3 and conv5_3 outputs (c3, c4,
-        c5 at strides 4, 8, 16)."""
+        c5 at strides 4, 8, 16). ``stage_range=(lo, hi)`` runs blocks
+        ``[lo, hi)`` on ``x``, the output of block ``lo - 1``: the max-pool
+        before each block but the first, the detach after block 2 only
+        when block 2 runs, as the JAX module does."""
+        lo, hi = stage_range
         taps = []
         for bi, (_, n_convs) in enumerate(_VGG_BLOCKS):
+            if not lo <= bi < hi:
+                continue
             if bi > 0:
                 x = F.max_pool2d(x, 2, 2)
             for ci in range(n_convs):

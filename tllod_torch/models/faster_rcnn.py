@@ -45,11 +45,13 @@ from tllod_torch.ops.roi_pool import roi_pool
 
 
 def nhwc_features(backbone: nn.Module, im_data: torch.Tensor,
-                  return_taps: bool = False):
-    """Run a ``channels_last`` backbone on an NHWC image batch: the NCHW
-    view goes in, and each map comes back as its NHWC view, contiguous in
-    memory, so no layout copy is made either way."""
-    out = backbone(im_data.permute(0, 3, 1, 2), return_taps=return_taps)
+                  return_taps: bool = False, **kw):
+    """Run a ``channels_last`` backbone on an NHWC image batch, or on the
+    NHWC map of an earlier block with a VGG backbone's ``stage_range`` in
+    ``kw``: the NCHW view goes in, and each map comes back as its NHWC
+    view, contiguous in memory, so no layout copy is made either way."""
+    out = backbone(im_data.permute(0, 3, 1, 2), return_taps=return_taps,
+                   **kw)
     if return_taps:
         return tuple(t.permute(0, 2, 3, 1) for t in out)
     return out.permute(0, 2, 3, 1)
@@ -142,16 +144,20 @@ class FasterRCNN(nn.Module):
                  compute_loss: bool = False,
                  post_nms_top_n: Optional[int] = None,
                  sample_proposals: bool = False,
-                 rng=None) -> Dict[str, Any]:
+                 rng=None, rpn_head: Optional[nn.Module] = None
+                 ) -> Dict[str, Any]:
         """RPN head + proposal layer (+ anchor targets and both RPN losses
         when ``training and compute_loss``, ``faster_rcnn.py:112-132``).
         ``training`` picks the TRAIN/TEST proposal params like the
         reference's ``cfg_key``. ``sample_proposals`` takes PA-ATF's random
         sample of the NMS survivors, its priorities drawn from ``rng``
-        before the anchor targets' (``rpn.sample_survivors``)."""
+        before the anchor targets' (``rpn.sample_survivors``). ``rpn_head``
+        replaces the detector's RPN head (IDF's auxiliary detector,
+        ``idf.py:187-226``, the same steps on its own head)."""
         cfg = self.cfg
         rcfg = cfg.rpn_cfg(training)
-        cls_score, bbox_pred = self.rpn(base_feat.permute(0, 3, 1, 2))
+        cls_score, bbox_pred = (rpn_head or self.rpn)(
+            base_feat.permute(0, 3, 1, 2))
         # box decode and losses in float32 whatever the compute dtype; NHWC,
         # so anchors follow the (h, w, a) order of the JAX package
         cls_score = cls_score.permute(0, 2, 3, 1).float()
@@ -218,11 +224,12 @@ class FasterRCNN(nn.Module):
 
     # ---- full forward ----
 
-    def head_losses(self, fc7: torch.Tensor, samples: RoiSamples
-                    ) -> Dict[str, Any]:
+    def head_losses(self, fc7: torch.Tensor, samples: RoiSamples,
+                    outputs=None) -> Dict[str, Any]:
         """Box-head outputs + RCNN losses for sampled RoIs
-        (``faster_rcnn.py:177-198``)."""
-        cls_score, bbox_pred = self.box_outputs(fc7)
+        (``faster_rcnn.py:177-198``); ``outputs``, a (cls_score,
+        bbox_pred) pair, replaces the detector's own from ``fc7``."""
+        cls_score, bbox_pred = outputs or self.box_outputs(fc7)
         labels = samples.labels.reshape(-1)
         if not self.class_agnostic:
             # the 4 regression columns of each RoI's class
@@ -245,18 +252,20 @@ class FasterRCNN(nn.Module):
                          training: bool = False,
                          supervised: Optional[bool] = None,
                          post_nms_top_n: Optional[int] = None,
-                         sample_proposals: bool = False, rng=None):
+                         sample_proposals: bool = False, rng=None,
+                         rpn_head: Optional[nn.Module] = None):
         """RPN → (proposal-target sampling when ``supervised``) → RoI
         pooling. Returns ``(out, samples, pooled)``, so method wrappers can
         run the source and target RoIs through one fc6/fc7 pass.
-        ``sample_proposals`` as in :meth:`rpn_rois`."""
+        ``sample_proposals`` and ``rpn_head`` as in :meth:`rpn_rois`."""
         if supervised is None:
             supervised = training
         b = base_feat.shape[0]
         rpn_out = self.rpn_rois(base_feat, im_info, gt_boxes,
                                 training=supervised, compute_loss=supervised,
                                 post_nms_top_n=post_nms_top_n,
-                                sample_proposals=sample_proposals, rng=rng)
+                                sample_proposals=sample_proposals, rng=rng,
+                                rpn_head=rpn_head)
         rois = rpn_out["rois"]
         zero = torch.zeros((), device=rois.device)
         out: Dict[str, Any] = {

@@ -105,10 +105,14 @@ def convert_resnet(sd: Mapping[str, torch.Tensor], depth: int
 
 
 def load_pretrained_backbone(module: nn.Module, net: str,
-                             path: Optional[str] = None) -> bool:
+                             path: Optional[str] = None,
+                             head: Optional[nn.Module] = None) -> bool:
     """Fill a detector's backbone and head, or a bare backbone (ATF's
-    ``backbone_anc``, as ``methods/da_runner.py:87-91`` does), from the
-    net's caffe-pretrained file (:data:`PRETRAINED_FILES`) under
+    ``backbone_anc``, as ``methods/da_runner.py:87-91`` does, IDF's
+    ``backbone_b``) and, given ``head``, that box head (IDF's
+    ``detector.head`` or ``head_aux``, as ``load_pretrained_backbone(...,
+    head_subtree=)`` at ``tllod_tpu/zoo.py:143-178``), from the net's
+    caffe-pretrained file (:data:`PRETRAINED_FILES`) under
     ``$TLLOD_PRETRAINED_DIR`` (default ``pretrained_model/``). A missing
     file, or a net with none (``vgg16_thin``, ``res14``), keeps the random
     init with a warning, as the JAX CLI does; returns whether weights were
@@ -123,15 +127,19 @@ def load_pretrained_backbone(module: nn.Module, net: str,
     raw = torch.load(path, map_location="cpu", weights_only=True)
     sd = (convert_vgg16(raw) if net == "vgg16"
           else convert_resnet(raw, int(net[3:])))
-    own = module.state_dict()
-    if not any(k.startswith("backbone.") for k in own):   # a bare backbone
-        sd = {k[len("backbone."):]: v for k, v in sd.items()
-              if k.startswith("backbone.")}
-    for k, v in sd.items():
-        if own[k].shape != v.shape:
-            raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, the "
-                             f"model {tuple(own[k].shape)}")
-    module.load_state_dict(sd, strict=False)
+    if any(k.startswith("backbone.") for k in module.state_dict()):
+        parts = [(module, "")]                      # a detector
+    else:                                           # a bare backbone
+        parts = [(module, "backbone.")] + ([(head, "head.")] if head else [])
+    for m, prefix in parts:
+        own = m.state_dict()
+        sub = {k[len(prefix):]: v for k, v in sd.items()
+               if k.startswith(prefix)}
+        for k, v in sub.items():
+            if own[k].shape != v.shape:
+                raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, "
+                                 f"the model {tuple(own[k].shape)}")
+        m.load_state_dict(sub, strict=False)
     return True
 
 
