@@ -138,6 +138,22 @@ Phases, each ending the run nonzero on failure:
    counters reset before the 10 timed steps and read after (RoIAlignAvg,
    its backward and NMS must launch); losses finite; ms/step; one
    profiled step.
+   5d. The fused trainer (``[fused]`` lines), after each of the nine train
+   paths above, on its model, SGD and config: ``train.TrainStepMulti``,
+   ``--fuse_steps``' CUDA-graph replays of the whole step, over 4 batches
+   of the path's shape. 4 eager steps from a saved state (the first under
+   ``torch.cuda.set_sync_debug_mode("error")``), again from that state,
+   then 4 fused steps in one call (first sight eager, capture, replays):
+   draws ``torch.equal``, each kernel credited its launches a step, the
+   losses and parameters after the 4 steps printed beside the two eager
+   runs'. Then each batch stepped eagerly twice and replayed from one
+   state: draws, proposal NMS keep lists, sampled RoIs and labels and
+   ``fg_cnt`` equal, losses within 1e-6, the replay's update within twice
+   the second eager step's distance from the first. A ``torch.profiler``
+   trace of one replay counts each kernel's launches by name; eager and
+   graph ms/step in turns (3 rounds of 10 steps each way), the replay's
+   busy ms, peak memory. A ``[fused] summary`` line; each path's summary
+   has a ``fused`` entry in the kernels JSON.
    Prints one ``{"kernels": [...]}`` line with times and bounds of every
    kernel at every shape.
 6. Prints the card's ``nvidia-smi`` name and power limit, then the last
@@ -508,6 +524,12 @@ def main() -> int:
         f"{supervised['busy_ms']:.3f} ms; idf eval "
         f"{idf_eval['ms_per_image']:.3f} ms/image, busy "
         f"{idf_eval['busy_ms']:.3f} ms")
+    log("[fused] summary: " + "; ".join(
+        f"{name} eager {f['eager_ms_median']:.3f} graph "
+        f"{f['graph_ms_median']:.3f} ms/step, replay busy "
+        f"{f['replay_busy_ms']:.3f} ms, peak {f['peak_memory_gib']:.2f} GiB"
+        for name, f in [(n, s["fused"]) for n, s in summaries.items()]
+        + [("faster_rcnn", supervised["fused"])]))
     with open(os.path.join(args.out, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_image_ms": per_image_ms,
                    "res101_eval": res_eval,
@@ -2077,13 +2099,22 @@ def train_phase(spec, cfg, seed, out_dir):
             entries.append(e)
     sampled = (_sampled_proposal_check(model, cfg) if spec.pool_sites
                else None)
+    fused = fused_phase(
+        tag, model, spec.loss, opt, lambda i: (
+            spec.add_fields(make_train_batch(*spec.train_hw, 1,
+                                             seed + 20 + 2 * i, cfg, dev,
+                                             nc)),
+            make_train_batch(*spec.train_hw, 0, seed + 21 + 2 * i, cfg, dev,
+                             nc), *extra),
+        {**per_step, "roi_pool": len(spec.pool_sites),
+         "roi_pool_backward": len(spec.pool_sites)}, seed, out_dir)
     summary = {"ms_per_step": ms, "step_ms": times,
                "images_per_s": 2000.0 / ms, "busy_ms": busy,
                "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
                "peak_memory_gib": peak,
                "launches": launches, "card_vs_cpu": ref_errs,
                "top_kernels": top, "layout_copy_ms": copy_ms,
-               "layout_copies": copies}
+               "layout_copies": copies, "fused": fused}
     if spec.pool_sites:
         summary.update(roi_pool_copy_ms=pool_copy_ms,
                        roi_pool_copies=pool_copies,
@@ -2215,7 +2246,6 @@ def supervised_phase(cfg, seed, out_dir):
     busy, wall, kinds = _profile_window(
         lambda: step(TRAIN_WARMUP + TRAIN_STEPS), "faster_rcnn train step",
         os.path.join(out_dir, "chip_smoke_faster_rcnn_train_trace.json"))
-    torch.backends.cudnn.allow_tf32 = False
     log(f"[faster_rcnn] launches {launches}")
     for name in ("roi_align_avg", "roi_align_avg_backward", "nms"):
         if launches.get(name, 0) < 1:
@@ -2234,9 +2264,18 @@ def supervised_phase(cfg, seed, out_dir):
     log(f"[faster_rcnn] VGG16 1 image {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
         f"{ms:.3f} ms/step (median of {TRAIN_STEPS} steps), "
         f"{1000.0 / ms:.2f} images/s")
+
+    def fused_args(i):
+        b = make_train_batch(*TRAIN_HW, 1, seed + 20 + i, cfg, "cuda")
+        return b["im_data"], b["im_info"], b["gt_boxes"]
+
+    fused = fused_phase("faster_rcnn", model, detection_loss, opt,
+                        fused_args, {"roi_align_avg": 1,
+                                     "roi_align_avg_backward": 1, "nms": 1},
+                        seed, out_dir)
     return {"ms_per_step": ms, "step_ms": times, "images_per_s": 1000.0 / ms,
             "launches": launches, "busy_ms": busy, "profiled_wall_ms": wall,
-            "busy_ms_by_kind": kinds}
+            "busy_ms_by_kind": kinds, "fused": fused}
 
 
 def _profile_train_step(step, i, out_dir, pool, channels, spec, gt_rows):
@@ -2750,6 +2789,331 @@ def check_train_reference(spec, model, extra, cfg, seed):
                 f"worst {r['grad_rel_err_worst']} ({leaf})")
     return readings
 
+
+
+FUSE_K = 4                  # fused steps held to eager steps from one state
+FUSE_ROUNDS, FUSE_ROUND_STEPS = 3, 10     # timed rounds each way, in turns
+# each kernel's trace name and the launch counter it is credited to
+TRACE_KERNELS = (("roi_align_avg_forward_kernel", "roi_align_avg"),
+                 ("roi_align_avg_backward_kernel", "roi_align_avg_backward"),
+                 ("nms_scan_kernel", "nms"),
+                 ("roi_pool_rows_kernel<*false>", "roi_pool"),
+                 ("roi_pool_rows_kernel<*true>", "roi_pool_backward"))
+
+
+class _Selections:
+    """While entered, the proposal layer's NMS and the RoI sampler record a
+    copy of what each call selects: the keep list and count, the sampled
+    RoIs and labels. Inside a CUDA graph the copies are captured, so the
+    graph refreshes them on every replay. ``pop()`` takes the calls since
+    the last pop."""
+
+    def __enter__(self):
+        import tllod_torch.models.faster_rcnn as frcnn
+        import tllod_torch.models.rpn as rpn
+        self.mods = (frcnn, rpn)
+        self.saved = (frcnn.proposal_target, rpn.nms_fixed_batched)
+        self.calls = []
+
+        def nms(boxes, scores, **kw):
+            idx, num = self.saved[1](boxes, scores, **kw)
+            self.calls += [idx.clone(), num.clone()]
+            return idx, num
+
+        def sample(rois, gt_boxes, cfg, priorities):
+            out = self.saved[0](rois, gt_boxes, cfg, priorities)
+            self.calls += [out.rois.clone(), out.labels.clone()]
+            return out
+
+        frcnn.proposal_target, rpn.nms_fixed_batched = sample, nms
+        return self
+
+    def __exit__(self, *exc):
+        frcnn, rpn = self.mods
+        frcnn.proposal_target, rpn.nms_fixed_batched = self.saved
+
+    def pop(self):
+        out, self.calls = self.calls, []
+        return out
+
+
+def _trace_counts(prof):
+    """Launches of each hand kernel in a profiled window, by trace name."""
+    import fnmatch
+    import torch
+
+    counts = {key: 0 for _, key in TRACE_KERNELS}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for pattern, key in TRACE_KERNELS:
+            if fnmatch.fnmatch(ev.name, f"*{pattern}*"):
+                counts[key] += 1
+    return counts
+
+
+def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
+                out_dir):
+    """Phase 5d (``[fused]``): ``train.TrainStepMulti``, the CUDA-graph
+    replays of ``--fuse_steps``, on the train path that the phase before it
+    drove, with its model, SGD and config; ``args_for(i)`` gives the
+    arguments of fused step i, ``per_step`` each kernel's launches a step.
+
+    The trajectory: from one saved state (parameters, momentum, count),
+    FUSE_K eager steps, the first under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the step
+    would break a capture); again from that state; and again through a
+    runner over the same batches in one call: the first step eager, then
+    capture and replays. Every random draw of every fused step
+    ``torch.equal`` to the eager step's; each kernel credited exactly
+    ``per_step`` launches a replay, at capture and on the counters. The
+    losses and parameters after the FUSE_K steps are printed beside the two
+    eager runs' readings, not held to them: the atomics' last bits move the
+    next step's proposal scores, so two eager runs already part in their
+    selections after their first step, and the rest of the trajectory with
+    them.
+
+    Step by step, the gate: each of the FUSE_K batches is stepped eagerly
+    twice and replayed from one and the same state (saved, stepped,
+    restored). The replay's draws, proposal NMS keep lists and counts,
+    sampled RoIs and labels and ``fg_cnt`` equal the eager step's, every
+    loss within 1e-6 relative, and its update (the parameters' change, L2
+    over all trained parameters) as far from the first eager step's as
+    twice the second eager step's is at most, or 1e-6 where that is 0.
+
+    A ``torch.profiler`` trace of one replay counts ``per_step`` launches
+    of each kernel by name. Then eager against graph ms/step in turns,
+    FUSE_ROUNDS rounds of FUSE_ROUND_STEPS steps each way (a fresh runner
+    without the recording, so the timed graph is the train step's alone),
+    the busy ms of one profiled replay, the peak memory through the
+    capture and through the rounds. Returns the summary."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tllod_torch.ops import _kernels
+    from tllod_torch.train import StepRandom, TrainStepMulti, train_step
+
+    torch.backends.cudnn.allow_tf32 = True          # the timed defaults
+    dev = model.device
+    batches = [args_for(i) for i in range(FUSE_K)]
+    sel = _Selections()
+    per_step = {k: n for k, n in per_step.items() if n}
+
+    def save():
+        return ({k: v.clone() for k, v in model.state_dict().items()},
+                {"trace": {k: v.clone() for k, v in
+                           opt.state_dict()["trace"].items()},
+                 "count": opt.count})
+
+    def restore(state):
+        model.load_state_dict(state[0])
+        opt.load_state_dict(state[1])
+
+    def trained():
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def rel(x, want):
+        return abs(x - want) / max(abs(want), 1e-30)
+
+    def param_readings(other, ref):
+        return {n: float((other[n] - p).abs().max()
+                         / p.abs().max().clamp_min(1e-30))
+                for n, p in ref.items()}
+
+    def eager_step(args, i, sync_check=False):
+        rng = StepRandom(seed, opt.count, dev)
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = train_step(model, loss_fn, opt, args, seed=seed,
+                           step=opt.count, rng=rng)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return m, {"draws": [u.clone() for u in rng.drawn],
+                   "sel": sel.pop()}
+
+    def eager_run(sync_check):
+        restore(state0)
+        metrics, kept = [], []
+        with sel:
+            for i, args in enumerate(batches):
+                m, k = eager_step(args, i, sync_check and i == 0)
+                metrics.append(m)
+                kept.append(k)
+        return metrics, kept, trained()
+
+    # the trajectory: FUSE_K steps in one runner call against eager runs
+    state0 = save()
+    step0 = opt.count
+    m_a, k_a, p_a = eager_run(True)
+    m_b, _, p_b = eager_run(False)
+    restore(state0)
+    _kernels.reset_launches()
+    with sel:
+        runner = TrainStepMulti(model, loss_fn, opt, seed=seed,
+                                keep=lambda rng: {"draws": rng.drawn,
+                                                  "sel": sel.pop()})
+        m_f = runner(step0, batches)
+    torch.cuda.synchronize()
+    credited = {k: n for k, n in _kernels.launches.items() if n}
+    (captured,) = [g.launches for g in runner.graphs.values()]
+    p_f = trained()
+    n_draws = 0
+    for i in range(FUSE_K):
+        a, f = k_a[i]["draws"], runner.kept[i]["draws"]
+        if len(a) != len(f) or not all(torch.equal(x, y)
+                                       for x, y in zip(a, f)):
+            raise RuntimeError(f"{tag} fused step {i}: the random draws "
+                               f"differ from the eager step's")
+        n_draws += len(a)
+    keys = [k for k in m_a[0] if k != "fg_cnt"]
+    loss_e = max(rel(float(m_b[i][k]), float(m_a[i][k]))
+                 for i in range(FUSE_K) for k in keys)
+    loss_f = max(rel(float(m_f[k][i]), float(m_a[i][k]))
+                 for i in range(FUSE_K) for k in keys)
+    par_e = max(param_readings(p_b, p_a).values())
+    par_f = param_readings(p_f, p_a)
+    worst_f = max(par_f, key=par_f.get)
+    del p_a, p_b, p_f
+    log(f"[fused] {tag}: {FUSE_K} steps in one call from step {step0}: "
+        f"{n_draws} draws equal; losses rel. {loss_f:.3g} fused vs "
+        f"{loss_e:.3g} eager-eager; parameters worst rel. "
+        f"{par_f[worst_f]:.3g} ({worst_f}) fused vs {par_e:.3g} eager-eager; "
+        f"fg_cnt eager, fused, eager "
+        f"{[(float(m_a[i]['fg_cnt']), float(m_f['fg_cnt'][i]), float(m_b[i]['fg_cnt'])) for i in range(FUSE_K)]}")
+    if captured != per_step:
+        raise RuntimeError(f"{tag} captured step holds {captured} "
+                           f"launches, {per_step} a step expected")
+    want = {k: FUSE_K * n for k, n in per_step.items()}
+    if credited != want:
+        raise RuntimeError(f"{tag} fused run credited {credited}, {want} "
+                           f"expected")
+
+    # step by step from one state: eager, eager again, replay
+    def update_gap(after, other, before):
+        """|other - after| over |after - before|, all trained parameters
+        together (L2): a step's update told apart from another's."""
+        num = den = 0.0
+        for n, p in after.items():
+            num += float((other[n] - p).double().square().sum())
+            den += float((p - before[n]).double().square().sum())
+        return (num / max(den, 1e-300)) ** 0.5
+
+    n_sel, loss_1, gap_e, gap_r = 0, 0.0, [], []
+    runner.kept.clear()
+    with sel:
+        for i, args in enumerate(batches):
+            state = save()
+            before = trained()
+            m_e, k_e = eager_step(args, i)
+            p_e = trained()
+            restore(state)
+            m_e2, k_e2 = eager_step(args, i)
+            p_e2 = trained()
+            restore(state)
+            m_r = runner(opt.count, [args])
+            k_r = runner.kept.pop()
+            for what in ("draws", "sel"):
+                a, r = k_e[what], k_r[what]
+                if len(a) != len(r) or not all(torch.equal(x, y)
+                                               for x, y in zip(a, r)):
+                    raise RuntimeError(f"{tag} replay of step {i}: its "
+                                       f"{what} differ from an eager step's "
+                                       f"from the same state")
+            n_sel += len(k_e["sel"])
+            if float(m_r["fg_cnt"][0]) != float(m_e["fg_cnt"]):
+                raise RuntimeError(f"{tag} replay of step {i}: fg_cnt "
+                                   f"{float(m_r['fg_cnt'][0])}, eager "
+                                   f"{float(m_e['fg_cnt'])}")
+            loss_1 = max([loss_1] + [rel(float(m_r[k][0]), float(m_e[k]))
+                                     for k in keys]
+                         + [rel(float(m_e2[k]), float(m_e[k]))
+                            for k in keys])
+            gap_e.append(update_gap(p_e, p_e2, before))
+            gap_r.append(update_gap(p_e, trained(), before))
+            del before, p_e, p_e2, state
+    del runner
+    log(f"[fused] {tag}: {FUSE_K} replays, each from the state of two "
+        f"eager steps: draws and {n_sel} selections (keep lists and counts, "
+        f"sampled RoIs and labels) equal, fg_cnt equal; losses rel. "
+        f"{loss_1:.3g}; update against the first eager step's, relative "
+        f"L2 over all trained parameters: replay "
+        f"{', '.join(f'{g:.3g}' for g in gap_r)}, second eager step "
+        f"{', '.join(f'{g:.3g}' for g in gap_e)}")
+    if loss_1 > 1e-6:
+        raise RuntimeError(f"{tag} replayed losses off by {loss_1:.3g} "
+                           f"relative from the same state")
+    if max(gap_r) > (2 * max(gap_e) if max(gap_e) > 0 else 1e-6):
+        raise RuntimeError(f"{tag} replayed updates off by {max(gap_r):.3g} "
+                           f"relative, eager-vs-eager {max(gap_e):.3g}")
+
+    # time: eager and graph steps in turns; a profiled replay
+    seq = [batches[i % FUSE_K] for i in range(FUSE_ROUND_STEPS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runner = TrainStepMulti(model, loss_fn, opt, seed=seed)
+    held = torch.cuda.memory_allocated()
+    runner(opt.count, batches[:2])           # first sight; capture; replay
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated() - held) / 2 ** 30
+    peak_capture = torch.cuda.max_memory_allocated() / 2 ** 30
+    eager_ms, graph_ms, peaks = [], [], {"eager": 0.0, "graph": 0.0}
+    for _ in range(FUSE_ROUNDS):
+        for way, times, run in (("eager", eager_ms, lambda: [
+                train_step(model, loss_fn, opt, a, seed=seed,
+                           step=opt.count) for a in seq]),
+                ("graph", graph_ms, lambda: runner(opt.count, seq))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3
+                         / FUSE_ROUND_STEPS)
+            peaks[way] = max(peaks[way],
+                             torch.cuda.max_memory_allocated() / 2 ** 30)
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner(opt.count, seq[:1])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, top, kinds = _device_breakdown(
+        prof, wall, f"{tag} graph replay",
+        os.path.join(out_dir, f"chip_smoke_{tag}_fused_trace.json"))
+    traced = {k: n for k, n in _trace_counts(prof).items() if n}
+    if traced != per_step:
+        raise RuntimeError(f"{tag} trace of one replay counts {traced}, "
+                           f"{per_step} a step expected")
+    del runner
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    e_med, g_med = float(np.median(eager_ms)), float(np.median(graph_ms))
+    log(f"[fused] {tag}: launches a replay {per_step} (captured, credited "
+        f"and traced); eager {e_med:.3f} ms/step "
+        f"[{min(eager_ms):.3f}-{max(eager_ms):.3f}], graph {g_med:.3f} "
+        f"ms/step [{min(graph_ms):.3f}-{max(graph_ms):.3f}] ({FUSE_ROUNDS} "
+        f"rounds of {FUSE_ROUND_STEPS} each way, in turns), replay busy "
+        f"{busy:.3f} ms of {wall:.3f}, peak allocated {peak_capture:.2f} "
+        f"GiB through the first sight and the capture ({held:.2f} GiB held "
+        f"after it), {peaks['graph']:.2f} through the graph rounds, "
+        f"{peaks['eager']:.2f} through the eager ones, {reserved:.2f} GiB "
+        f"reserved")
+    return {"k": FUSE_K, "from_step": step0, "draws_equal": n_draws,
+            "loss_rel_fused": loss_f, "loss_rel_eager_eager": loss_e,
+            "param_rel_fused": par_f[worst_f], "param_worst": worst_f,
+            "param_rel_eager_eager": par_e,
+            "replayed_selections_equal": n_sel,
+            "replayed_loss_rel": loss_1, "replayed_update_gap": gap_r,
+            "eager_update_gap": gap_e, "held_after_capture_gib": held,
+            "peak_capture_gib": peak_capture, "reserved_gib": reserved,
+            "launches_per_replay": per_step, "traced_per_replay": traced,
+            "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
+            "eager_ms_median": e_med, "graph_ms_median": g_med,
+            "replay_busy_ms": busy, "replay_wall_ms": wall,
+            "replay_busy_ms_by_kind": kinds,
+            "peak_memory_gib": peaks["graph"],
+            "eager_peak_memory_gib": peaks["eager"]}
 
 if __name__ == "__main__":
     sys.exit(main())

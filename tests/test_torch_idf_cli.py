@@ -218,8 +218,15 @@ def test_idf_train_cli_records_separation_resume_and_test(
                                 for d in "st"}
     with open(os.path.join(out_dir, "metrics.jsonl")) as f:
         assert [json.loads(line)["step"] for line in f] == [1, 2, 3]
-    with pytest.raises(NotImplementedError, match="--fuse_steps"):
-        _idf(save, "--fuse_steps", "2", "--max_steps", "1")
+    # --fuse_steps 2 from the resume: steps 4 and 5 in one fused group,
+    # still one record line a step
+    assert _idf(save, "--r", "True", "--checkepoch", "2", "--checkpoint",
+                "3", "--max_steps", "5", "--sep_epoch", "2",
+                "--fuse_steps", "2") == 5
+    fused = _records(os.path.join(out_dir, "record_loss.txt"))
+    assert [r[:2] for r in fused] == [(1, 1), (1, 2), (2, 3), (3, 4), (3, 5)]
+    assert all(r[3]["se_loss"] > 0 for r in fused[3:])
+    assert len(_records(os.path.join(out_dir, "record_dist.txt"))) == 5
 
     parts = []
     test_roidb = idf_test.combined_roidb

@@ -188,12 +188,78 @@ def test_pt_maf_train_needs_a_teacher(synth_voc, tmp_path, monkeypatch):
 
 def test_unported_train_flags_raise(synth_voc, tmp_path, monkeypatch):
     monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
-    for flags in (["--bf16"], ["--fuse_steps", "2"], ["--mGPUs"]):
+    for flags in (["--bf16"], ["--mGPUs"]):
         with pytest.raises(NotImplementedError):
             _train(str(tmp_path), *flags)
     for flags in (["--o", "adam"], ["--bf16_momentum"]):
         with pytest.raises(NotImplementedError):
             _train(str(tmp_path), "--max_steps", "1", *flags)
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_fuse_steps_takes_the_step_by_step_trajectory(synth_voc, tmp_path,
+                                                      monkeypatch):
+    """``--fuse_steps 2 --max_steps 3``: one fused group of two steps, then
+    one step alone (the remainder); the checkpoint (parameters, momentum,
+    count) and every step's logged losses and rate equal the
+    ``--fuse_steps 1`` run's."""
+    monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
+    monkeypatch.setenv("TLLOD_PRETRAINED_DIR", str(tmp_path / "none"))
+    groups = []
+    runner_call = da_runner.TrainStepMulti.__call__
+
+    def spy(self, step, batches):
+        groups.append((step, len(batches)))
+        return runner_call(self, step, batches)
+
+    monkeypatch.setattr(da_runner.TrainStepMulti, "__call__", spy)
+    # one CPU thread: threaded reductions sum in an order that changes
+    # from run to run
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    runs = {}
+    try:
+        for fuse in ("1", "2"):
+            save = str(tmp_path / f"fuse{fuse}")
+            assert _train(save, "--max_steps", "3", "--fuse_steps",
+                          fuse) == 3
+            out_dir = os.path.join(save, "vgg16_thin", "cityscape")
+            runs[fuse] = (torch.load(os.path.join(out_dir, "daf_1_1_3.pth"),
+                                     weights_only=True),
+                          _jsonl(os.path.join(out_dir, "metrics.jsonl")))
+    finally:
+        torch.set_num_threads(threads)
+    assert groups == [(0, 2)]
+    (one, one_log), (two, two_log) = runs["1"], runs["2"]
+    assert two["opt_state"]["count"] == one["opt_state"]["count"] == 3
+    for k, v in one["params"].items():
+        assert torch.equal(v, two["params"][k]), k
+    for k, v in one["opt_state"]["trace"].items():
+        assert torch.equal(v, two["opt_state"]["trace"][k]), k
+    assert [r["step"] for r in two_log] == [1, 2, 3]
+    for a, b in zip(one_log, two_log):
+        assert {k: v for k, v in a.items() if k != "time_per_iter"} == {
+            k: v for k, v in b.items() if k != "time_per_iter"}
+
+
+def test_profile_traces_steps_from_ten(synth_voc, tmp_path, monkeypatch):
+    """``--profile 1``: a ``torch.profiler`` Chrome trace of step 11 (the
+    steps after the tenth, as ``methods/common.py:376``) under the output
+    dir's ``profile``."""
+    monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
+    monkeypatch.setenv("TLLOD_PRETRAINED_DIR", str(tmp_path / "none"))
+    save = str(tmp_path / "out")
+    assert _train(save, "--max_steps", "11", "--profile", "1",
+                  "--fuse_steps", "2") == 11
+    path = os.path.join(save, "vgg16_thin", "cityscape", "profile",
+                        "trace_steps_10_11.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::conv") for e in events)
 
 
 def _eval_args(load_name, part, out):

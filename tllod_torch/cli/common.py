@@ -1,7 +1,8 @@
 """Shared entry-point machinery of the port's CLIs (``methods/common.py:
 27-373``): the reference's flag surface, the dataset aliases, config
 resolution (defaults → ``cfgs/<net>.yml`` → dataset ``set_cfgs`` → ``--set``
-overrides) and the train loss logger. Reading a ``cfgs/*.yml`` file needs
+overrides), the train loss logger, the step profiler and the batch padding
+of ``--fuse_steps``. Reading a ``cfgs/*.yml`` file needs
 ``yaml``."""
 
 from __future__ import annotations
@@ -10,8 +11,9 @@ import argparse
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from tllod_torch.config import Config, cfg_from_file, cfg_from_list
@@ -62,7 +64,8 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--bf16_momentum", action="store_true",
                    help="bfloat16 momentum: not ported yet (raises)")
     p.add_argument("--fuse_steps", default=1, type=int,
-                   help="fused steps: not ported yet (raises if > 1)")
+                   help="K train steps per host iteration: on the card K "
+                        "replays of a CUDA graph of the whole step")
     p.add_argument("--Mission", default="unnamed", type=str,
                    help="run name, accepted for script compatibility")
     p.add_argument("--o", dest="optimizer", default="sgd", type=str,
@@ -79,7 +82,8 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--use_tfb", dest="use_tfboard", action="store_true",
                    help="write per-interval scalar metrics to a JSONL file")
     p.add_argument("--profile", default=0, type=int,
-                   help="profiler traces: not ported yet (raises if > 0)")
+                   help="trace N steps from step 10 with torch.profiler "
+                        "into <save_dir>/<net>/<dataset>/profile")
     p.add_argument("--max_steps", default=0, type=int,
                    help="optional hard step cap (0 = full epochs)")
     p.add_argument("--set", dest="set_cfgs", nargs="*", default=None,
@@ -91,8 +95,7 @@ def check_train_args(args) -> None:
     """Raise for flags whose features are not ported yet."""
     unported = [flag for flag, on in (
         ("--mGPUs", args.m_chips), ("--tp", args.tp > 1), ("--sp", args.sp),
-        ("--bf16", args.bf16), ("--fuse_steps", args.fuse_steps > 1),
-        ("--profile", args.profile > 0)) if on]
+        ("--bf16", args.bf16)) if on]
     if unported:
         raise NotImplementedError(f"{', '.join(unported)}: not ported yet")
 
@@ -122,6 +125,20 @@ class MetricLogger:
         if step % self.interval == 0:
             self._display(step, epoch, lr)
 
+    def update_many(self, last_step: int, epoch: int,
+                    lr: Callable[[int], float],
+                    metrics: Dict[str, torch.Tensor]) -> None:
+        """The K fused steps ending at ``last_step`` (each metric a (K,)
+        column, as ``methods/common.py:329``), row by row as K
+        :meth:`update` calls, so every interval step is displayed with its
+        own rate ``lr(step)``."""
+        keys = sorted(metrics)
+        rows = torch.stack([metrics[k].float() for k in keys], dim=1)
+        first = last_step - rows.shape[0] + 1
+        for i, row in enumerate(rows):
+            self.update(first + i, epoch, lr(first + i),
+                        dict(zip(keys, row)))
+
     def _display(self, step: int, epoch: int, lr: float) -> None:
         vals = (self.acc / self.n).tolist()          # the one host copy
         dt = time.time() - self.t0
@@ -143,6 +160,69 @@ class MetricLogger:
     def close(self) -> None:
         if self.jsonl:
             self.jsonl.close()
+
+
+class StepProfiler:
+    """A ``torch.profiler`` trace of steps ``[start, start + n)``
+    (``methods/common.py:376-396``): :meth:`tick` after each step, with
+    the count of steps done; the Chrome trace goes to ``<out_dir>/
+    trace_steps_<start>_<stop>.json``, with the card's kernels where there
+    is a card."""
+
+    def __init__(self, out_dir: str, n_steps: int, start: int = 10):
+        self.out_dir = out_dir
+        self.start = start
+        self.stop_at = start + n_steps
+        self.cuda = torch.cuda.is_available()
+        self.prof = None
+
+    def tick(self, step: int) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        if step == self.start:
+            os.makedirs(self.out_dir, exist_ok=True)
+            self.prof = profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.cuda else []))
+            self.prof.start()
+            print(f"[profile] tracing steps {self.start}..{self.stop_at} "
+                  f"-> {self.out_dir}", flush=True)
+        elif step == self.stop_at and self.prof is not None:
+            self.close()
+
+    def close(self) -> None:
+        """Stop a trace that is running and write it."""
+        if self.prof is None:
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        self.prof.stop()
+        path = os.path.join(self.out_dir, f"trace_steps_{self.start}_"
+                                          f"{self.stop_at}.json")
+        self.prof.export_chrome_trace(path)
+        self.prof = None
+        print(f"[profile] trace written: {path}", flush=True)
+
+
+def stack_batches(batches: Sequence[Dict[str, np.ndarray]]
+                  ) -> List[Dict[str, np.ndarray]]:
+    """K loader batches zero-padded to one shape for the fused trainer
+    (``--fuse_steps``; ``methods/common.py:464-500``). Loader batches pad
+    images only to their own batch's largest (H, W), so the K can disagree;
+    every array is zero-padded to the elementwise max over the K, as the
+    loader pads within a batch. ``im_info`` keeps the true sizes, so
+    anchors and proposals in the padding are masked as before. Returns K
+    batches of one shape (JAX stacks them on a leading axis for its scan)."""
+    out = [dict(b) for b in batches]
+    for key in batches[0]:
+        vals = [np.asarray(b[key]) for b in batches]
+        shape = tuple(max(v.shape[d] for v in vals)
+                      for d in range(vals[0].ndim))
+        for b, v in zip(out, vals):
+            if v.shape != shape:
+                pv = np.zeros(shape, v.dtype)
+                pv[tuple(slice(0, s) for s in v.shape)] = v
+                b[key] = pv
+    return out
 
 
 def build_test_parser(description: str) -> argparse.ArgumentParser:

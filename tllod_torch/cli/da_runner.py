@@ -10,9 +10,14 @@ the loop (JAX spends it on ``model.init``, ``da_runner.py:79-84``), so step
 k trains on loader batch k + 1; and the learning rate logged after step k
 is ``schedule(k)``, the rate of the next update (``:153-158``).
 
+``--fuse_steps K`` runs K steps per host iteration through
+:class:`tllod_torch.train.TrainStepMulti` (on the card, CUDA-graph replays
+of the whole step) on K batches from each loader padded to one shape, and
+the rest of an epoch step by step, as ``methods/da_runner.py:130-160``.
+``--profile N`` traces steps [10, 10 + N) into ``<output dir>/profile``.
+
 Not ported from the JAX runner, and raising in
-:func:`tllod_torch.cli.common.check_train_args`: several processes,
-``--fuse_steps`` and ``--profile``.
+:func:`tllod_torch.cli.common.check_train_args`: several processes.
 """
 
 from __future__ import annotations
@@ -23,12 +28,13 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from tllod_torch.cli.common import (DATASET_MAP, MetricLogger,
-                                    check_train_args, resolve_config)
+from tllod_torch.cli.common import (DATASET_MAP, MetricLogger, StepProfiler,
+                                    check_train_args, resolve_config,
+                                    stack_batches)
 from tllod_torch.cli.faster_rcnn_test import evaluate_split
 from tllod_torch.data.loader import DetectionLoader
 from tllod_torch.data.roidb import combined_roidb
-from tllod_torch.train import train_step
+from tllod_torch.train import TrainStepMulti, train_step
 from tllod_torch.utils.checkpoint import resume_train_state, save_checkpoint
 from tllod_torch.utils.optim import build_optimizer
 from tllod_torch.zoo import load_pretrained_backbone
@@ -102,7 +108,10 @@ def train_loop(method_name: str, model, loss_fn: Callable,
     before they go to the device, adds per-epoch fields to them (MAD's
     ``epoch``, IDF's ``separation``); ``after_step(step, epoch, metrics)``
     sees each step's metrics, still on the device (IDF's records).
-    Returns the last step reached."""
+    ``--fuse_steps K`` takes K steps at a time through
+    :class:`TrainStepMulti` while K or more are left in the epoch, each
+    loader's K batches padded to one shape (:func:`stack_batches`), and
+    the rest one by one. Returns the last step reached."""
     steps_per_epoch = min(len(loader) for loader in loaders)
     schedule, opt = build_optimizer(args, cfg, model, steps_per_epoch)
 
@@ -123,26 +132,57 @@ def train_loop(method_name: str, model, loss_fn: Callable,
     logger = MetricLogger(args.disp_interval, jsonl_path=(
         os.path.join(output_dir, "metrics.jsonl") if args.use_tfboard
         else None))
+    fuse = max(1, args.fuse_steps)
+    runner = (TrainStepMulti(model, loss_fn, opt, seed=cfg.RNG_SEED)
+              if fuse > 1 else None)
+    profiler = (StepProfiler(os.path.join(output_dir, "profile"),
+                             args.profile) if args.profile > 0 else None)
     its = [iter(loader) for loader in loaders]
     for it in its:               # JAX's model.init batches, dropped
         next(it)
+
+    def host_batches(epoch):
+        batches = [next(it) for it in its]
+        if epoch_batches is not None:
+            batches = epoch_batches(epoch, batches)
+        return batches
+
+    def finish(step, epoch, metrics):
+        if profiler is not None:
+            profiler.tick(step)
+        if after_step is not None:
+            after_step(step, epoch, metrics)
+
     try:
         for epoch in range(args.start_epoch, args.max_epochs + 1):
             todo = steps_per_epoch
             if args.max_steps:
                 todo = min(todo, max(0, args.max_steps - step))
-            for _ in range(todo):
-                batches = [next(it) for it in its]
-                if epoch_batches is not None:
-                    batches = epoch_batches(epoch, batches)
-                batches = [_to_device(b, model.device) for b in batches]
+            while todo > 0:
+                if runner is not None and todo >= fuse:
+                    steps = [host_batches(epoch) for _ in range(fuse)]
+                    padded = [stack_batches([s[i] for s in steps])
+                              for i in range(len(its))]
+                    metrics = runner(step, [
+                        step_args(*[_to_device(p[k], model.device)
+                                    for p in padded])
+                        for k in range(fuse)])
+                    logger.update_many(step + fuse, epoch, schedule, metrics)
+                    for k in range(fuse):
+                        finish(step + k + 1, epoch,
+                               {key: v[k] for key, v in metrics.items()})
+                    step += fuse
+                    todo -= fuse
+                    continue
+                batches = [_to_device(b, model.device)
+                           for b in host_batches(epoch)]
                 metrics = train_step(model, loss_fn, opt,
                                      step_args(*batches),
                                      seed=cfg.RNG_SEED, step=step)
                 step += 1
+                todo -= 1
                 logger.update(step, epoch, schedule(step), metrics)
-                if after_step is not None:
-                    after_step(step, epoch, metrics)
+                finish(step, epoch, metrics)
             done = ((args.max_steps and step >= args.max_steps)
                     or epoch == args.max_epochs)
             if done or epoch % max(1, args.save_epoch_interval) == 0:
@@ -158,6 +198,8 @@ def train_loop(method_name: str, model, loss_fn: Callable,
                 break
     finally:
         logger.close()
+        if profiler is not None:
+            profiler.close()
     return step
 
 

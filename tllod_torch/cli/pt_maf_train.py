@@ -14,7 +14,11 @@ params, as :mod:`tllod_torch.cli.faster_rcnn_test` does.
 detector instead; one of the two is required. ``--alpha/--beta/--gamma``
 are parsed and, as in the JAX package, reach nothing: the level weights
 are fixed at 1. The loop and the checkpoints (``pt_maf_<session>_<epoch>_
-<step>.pth``) are those of :mod:`tllod_torch.cli.daf_train`.
+<step>.pth``) are those of :mod:`tllod_torch.cli.daf_train`. Under
+``--fuse_steps`` the teacher rides among every step's arguments: its
+weights are device tensors that each CUDA-graph replay reads in place, so
+JAX's scan-invariant argument (``n_invariant``,
+``methods/PT_MAF/PT_MAF_train.py:141-147``) needs no counterpart.
 """
 
 from __future__ import annotations

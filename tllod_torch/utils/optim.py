@@ -8,14 +8,18 @@
     mask frozen → clip by global norm → + wd·w (trainable, non-bias)
     → momentum (v ← g + μ·v) → × −lr → × 2 on biases → mask frozen
 
-Everything after the clip is ``torch.optim.SGD`` (dampening 0) over two
-param groups: frozen parameters are in neither, biases take twice the
-learning rate and no decay. optax's trace starts at 0, so its first step
-sets it to g, as ``torch.optim.SGD`` does. The clip is optax's
+over two param groups: frozen parameters are in neither, biases take twice
+the learning rate and no decay. The clip is optax's
 ``clip_by_global_norm``: ``(g / ‖g‖) · max`` unless ``‖g‖ < max``, with no
-epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6). The learning rate
-is a host-side function of the update count, so a step waits for nothing.
-``--o adam`` and ``--bf16_momentum`` are not ported yet and raise.
+epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6). The momentum starts
+at 0, as optax's trace does, so the first step sets it to g. The update is
+``torch._foreach_*`` ops that read the rate from a device tensor: the
+learning rate is a host-side function of the update count, filled into that
+tensor before each update, so no step waits for the card and a CUDA graph
+can replay the update (:meth:`SGD.update`) with each replay's own rate.
+``p − (lr·v)`` rounds the product and then the sum, as optax's scale and
+``apply_updates`` do. ``--o adam`` and ``--bf16_momentum`` are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -66,13 +70,18 @@ def epoch_decay_schedule(base_lr: float, steps_per_epoch: int,
     return schedule
 
 
-class SGD(torch.optim.SGD):
-    """``torch.optim.SGD`` over the trainable named parameters of a module
-    in two groups, weights (lr, decay) and biases (``2·lr`` under
-    ``double_bias``, no decay unless ``bias_decay``), with optax's clip in
-    front and the learning rate set from the update count ``count``.
-    ``state_dict``/``load_state_dict`` carry the momentum buffers by
-    parameter name, and the count."""
+class SGD(torch.optim.Optimizer):
+    """SGD over the trainable named parameters of a module in two groups,
+    weights (lr, decay) and biases (``2·lr`` under ``double_bias``, no
+    decay unless ``bias_decay``), with optax's clip in front and the
+    learning rate set from the update count ``count``.
+
+    :meth:`step` is :meth:`fill_rate`, :meth:`update` and ``count += 1``.
+    :meth:`update` changes no host value and allocates only where a
+    parameter has no gradient, so a CUDA graph can capture it; the graph's
+    runner calls :meth:`fill_rate` before each replay and advances
+    ``count`` after it. ``state_dict``/``load_state_dict`` carry the
+    momentum buffers by parameter name, and the count."""
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]],
                  learning_rate: Callable[[int], float], *,
@@ -91,18 +100,34 @@ class SGD(torch.optim.SGD):
              "lr_scale": 2.0 if double_bias else 1.0,
              "weight_decay": weight_decay if bias_decay else 0.0}]
         super().__init__([g for g in groups if g["params"]],
-                         lr=learning_rate(0), momentum=momentum,
-                         foreach=True)
+                         {"lr": learning_rate(0)})
         self.learning_rate = learning_rate
+        self.momentum = momentum
         self.clip_norm = clip_norm
         self.count = 0
+        for p in self.named_params().values():
+            self.state[p]["momentum_buffer"] = torch.zeros_like(p)
+        # each group's −lr·scale, on its parameters' device
+        self.rates = [torch.zeros((), device=g["params"][0].device)
+                      for g in self.param_groups]
 
     def named_params(self) -> Dict[str, nn.Parameter]:
         return {n: p for g in self.param_groups
                 for n, p in zip(g["names"], g["params"])}
 
+    def fill_rate(self) -> None:
+        """Set each group's ``lr`` and fill its device rate for update
+        ``count``: a fill launch with the value as its argument, no copy
+        from the host."""
+        lr = self.learning_rate(self.count)
+        for g, rate in zip(self.param_groups, self.rates):
+            g["lr"] = lr * g["lr_scale"]
+            rate.fill_(-g["lr"])
+
     @torch.no_grad()
-    def step(self) -> None:
+    def update(self) -> None:
+        """Clip, decay, momentum and the step, at the rates
+        :meth:`fill_rate` left."""
         params = [p for g in self.param_groups for p in g["params"]]
         for p in params:
             if p.grad is None:          # optax decays and carries momentum
@@ -117,10 +142,20 @@ class SGD(torch.optim.SGD):
             torch._foreach_div_(grads, torch.where(keep, one, norm))
             torch._foreach_mul_(grads, torch.where(
                 keep, one, torch.full_like(norm, self.clip_norm)))
-        lr = self.learning_rate(self.count)
-        for g in self.param_groups:
-            g["lr"] = lr * g["lr_scale"]
-        super().step()
+        for g, rate in zip(self.param_groups, self.rates):
+            ps = g["params"]
+            grads = [p.grad for p in ps]
+            bufs = [self.state[p]["momentum_buffer"] for p in ps]
+            if g["weight_decay"]:
+                grads = torch._foreach_add(grads, ps,
+                                           alpha=g["weight_decay"])
+            torch._foreach_mul_(bufs, self.momentum)
+            torch._foreach_add_(bufs, grads)
+            torch._foreach_add_(ps, torch._foreach_mul(bufs, rate))
+
+    def step(self) -> None:
+        self.fill_rate()
+        self.update()
         self.count += 1
 
     def state_dict(self) -> dict:
@@ -135,9 +170,8 @@ class SGD(torch.optim.SGD):
         if unknown:
             raise KeyError(f"optimizer state names parameters this model "
                            f"does not train: {unknown[:5]}")
-        for n, t in state["trace"].items():
-            self.state[params[n]]["momentum_buffer"] = t.to(
-                params[n].device, params[n].dtype).clone()
+        for n, t in state["trace"].items():    # in place: a graph reads it
+            self.state[params[n]]["momentum_buffer"].copy_(t)
         self.count = int(state["count"])
 
 
