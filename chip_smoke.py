@@ -25,8 +25,10 @@ Phases, each ending the run nonzero on failure:
 4. Kernel parity: the main path's own tensors (feature map, RoIs, the
    proposal-layer and per-class NMS problems) are captured, and each kernel
    is held against its plain version on them: the RoIAlignAvg forward
-   float32 bit-equal (``torch.equal``), bfloat16 on the same bfloat16 input
-   at atol 1e-3 + rtol 8e-3 (two bfloat16 ulps), with its kernel time
+   bit-equal (``torch.equal``) in float32 and on the same input in
+   bfloat16, the backward within 1e-5 in float32 and within one bfloat16
+   spacing + 1e-5 x max|want| of the plain version's bfloat16 map
+   gradient in bfloat16, with its kernel time
    alone (CUDA events around back-to-back launches through its C interface)
    beside the wrapper's, the RoIs' reuse factor and bin quartiles; then, on
    the eval-batch-1 map, the edge RoIs (outside the map, last row and
@@ -154,6 +156,31 @@ Phases, each ending the run nonzero on failure:
    graph ms/step in turns (3 rounds of 10 steps each way), the replay's
    busy ms, peak memory. A ``[fused] summary`` line; each path's summary
    has a ``fused`` entry in the kernels JSON.
+   5e. ``--bf16`` (``[bf16 <method>]`` lines): DAF, MAF, ATF, PA-ATF and
+   US-DAF as that flag builds them (bfloat16 layers, float32 parameters,
+   SGD and losses), at phase 5's widths, images and SGD: the drift of one
+   forward's losses against the float32 model from the same state and
+   draws; DAF's card-vs-CPU pair at bfloat16 (losses within 2e-2, the
+   gradient limits BF16_REF_LIMITS); 5 timed steps with the counters reset
+   before and read after, each kernel launched once a step at each site as
+   in float32 (RoIPool 3 forward and 3 backward a PA-ATF step) and no
+   gradient-layout copy; ms/step, peak memory, a profiled step; every
+   RoIAlignAvg and RoIPool call of the step held to its plain version on
+   its own bfloat16 tensors (forward ``torch.equal``, backward within one
+   bfloat16 spacing + 1e-5 x max|want|, RoIPool at every chunk width and on
+   its tie map), PA-ATF's c3 map also on RoIs across columns 256-300 (the
+   bfloat16 coordinates of JAX's membership test) and its c5 map on phase
+   4's RoIPool sets. Then ``fused_phase`` for DAF at bfloat16.
+   5f. ``[optim]``: DAF's eager step under the reference SGD,
+   ``--bf16_momentum`` and ``--o adam``: ms/step, peak memory, optimizer
+   state bytes; then ``fused_phase`` under Adam.
+   5g. ``[overfit]``: the learning proof of ``tools/overfit_synth.py``:
+   its set rendered in numpy in memory, DAF at full VGG16 width trained
+   2000 steps through ``cli.da_runner.train_loop`` with ``--fuse_steps
+   16``, in float32 and under ``--bf16``, each scored on its training
+   images through ``EvalLoader``, ``eval_engine.detect_chunks`` and the VOC
+   AP of ``data.evaluate``: fails below mAP 0.85 (the tool's
+   ``--min_map``).
    Prints one ``{"kernels": [...]}`` line with times and bounds of every
    kernel at every shape.
 6. Prints the card's ``nvidia-smi`` name and power limit, then the last
@@ -524,18 +551,62 @@ def main() -> int:
         f"{supervised['busy_ms']:.3f} ms; idf eval "
         f"{idf_eval['ms_per_image']:.3f} ms/image, busy "
         f"{idf_eval['busy_ms']:.3f} ms")
+    # ---- 5e. --bf16 on its five methods; --fuse_steps at bf16 ----
+    bf16 = {}
+    for spec in TRAIN_METHODS:
+        if spec.name not in BF16_METHODS:
+            continue
+        entries, bf16[spec.name], state = bf16_phase(spec, cfg, args.seed,
+                                                     args.out)
+        kernels += entries
+        if spec.name == "daf":
+            model, extra, opt, _, _ = state
+            bf16["daf"]["fused"] = fused_phase(
+                "bf16 daf", model, spec.loss, opt, lambda i: (
+                    make_train_batch(*spec.train_hw, 1, args.seed + 20 + 2 * i,
+                                     cfg, dev),
+                    make_train_batch(*spec.train_hw, 0, args.seed + 21 + 2 * i,
+                                     cfg, dev)),
+                {"roi_align_avg": 2, "roi_align_avg_backward": 2, "nms": 2},
+                args.seed, args.out)
+            del model, extra, opt
+        del state
+        torch.cuda.empty_cache()
+
+    # ---- 5f. --o adam and --bf16_momentum; 5g. the learning proof ----
+    optim = optim_phase(cfg, args.seed, args.out)
+    overfit = [overfit_phase(args.seed, args.out, bf) for bf in (False,
+                                                                True)]
+
     log("[fused] summary: " + "; ".join(
         f"{name} eager {f['eager_ms_median']:.3f} graph "
         f"{f['graph_ms_median']:.3f} ms/step, replay busy "
         f"{f['replay_busy_ms']:.3f} ms, peak {f['peak_memory_gib']:.2f} GiB"
         for name, f in [(n, s["fused"]) for n, s in summaries.items()]
-        + [("faster_rcnn", supervised["fused"])]))
+        + [("faster_rcnn", supervised["fused"]),
+           ("bf16 daf", bf16["daf"]["fused"]),
+           ("adam daf", optim["fused_adam"])]))
+    log("[bf16] summary: " + "; ".join(
+        f"{name} {b['ms_per_step']:.3f} ms/step (float32 "
+        f"{summaries[name]['ms_per_step']:.3f}), busy {b['busy_ms']:.3f} ms "
+        f"({summaries[name]['busy_ms']:.3f}), peak "
+        f"{b['peak_memory_gib']:.2f} GiB "
+        f"({summaries[name]['peak_memory_gib']:.2f})"
+        for name, b in bf16.items()))
+    log("[optim] summary: " + "; ".join(
+        f"{name} {o['ms_per_step']:.3f} ms/step, peak "
+        f"{o['peak_memory_gib']:.2f} GiB" for name, o in optim.items()
+        if name != "fused_adam"))
+    log("[overfit] summary: " + "; ".join(
+        f"{o['dtype']} mAP {o['train_map']:.4f} after {o['steps']} steps "
+        f"in {o['train_loop_s']:.1f} s" for o in overfit))
     with open(os.path.join(args.out, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_image_ms": per_image_ms,
                    "res101_eval": res_eval,
                    "train": summaries.pop("daf"), "methods": summaries,
                    "faster_rcnn": supervised, "idf_eval": idf_eval,
-                   "nms_adversarial": adversarial}, f, indent=1)
+                   "nms_adversarial": adversarial, "bf16": bf16,
+                   "optim": optim, "overfit": overfit}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
 
     # ---- 6. card ----
@@ -772,9 +843,10 @@ def _entry(name, shape, launches, err, k_ms, p_ms, nbytes, ops, **extra):
 
 
 def _forward_check(label, feat, rois, kw):
-    """The forward kernel against its plain version: float32 bit-equal,
-    bfloat16 within atol 1e-3 + rtol 8e-3 (two bf16 ulps). Returns the
-    kernel's output and the max error."""
+    """The forward kernel against its plain version, bit-equal
+    (``torch.equal``) in float32 and in bfloat16: both sample and average
+    in float32 with the same roundings and round a bfloat16 output once.
+    Returns the kernel's output and the max error."""
     import torch
     from tllod_torch.ops.roi_align import roi_align_avg, roi_align_avg_plain
 
@@ -783,9 +855,7 @@ def _forward_check(label, feat, rois, kw):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item() if got.numel() \
         else 0.0
-    ok = (torch.equal(got, want) if feat.dtype == torch.float32 else
-          torch.allclose(got.float(), want.float(), atol=1e-3, rtol=8e-3))
-    if got.shape != want.shape or not ok:
+    if got.shape != want.shape or not torch.equal(got, want):
         raise RuntimeError(f"roi_align_avg {label} {feat.dtype}: max err "
                            f"{err}")
     return got, err
@@ -806,16 +876,13 @@ def _roi_align_entry(feat, rois, kw, dtype, launches, label=None):
               + got.element_size() * got.numel())
     # per channel: (P+1)^2 bilinear samples (8 mul, 3 add) + P^2 means
     ops = r * c * ((p + 1) ** 2 * 11 + p * p * 4)
-    tol = ({"exact": True} if dtype == torch.float32
-           else {"tolerance": {"atol": 1e-3, "rtol": 8e-3}})
     e = _entry("roi_align_avg",
                (f"{label}: " if label else "")
                + f"{str(dtype)[6:]} map {b}x{h}x{w}x{c}, {r} rois, P={p}",
                launches, err, k_ms, p_ms, nbytes, ops, wrapper_ms=w_ms,
-               **tol, **roi_reuse_stats(f.shape, rois, p,
-                                        kw["spatial_scale"]))
-    log(f"[parity] roi_align_avg {e['shape']}: "
-        f"{'exact' if 'exact' in e else f'max err {err:.3g}'}, kernel "
+               exact=True, **roi_reuse_stats(f.shape, rois, p,
+                                             kw["spatial_scale"]))
+    log(f"[parity] roi_align_avg {e['shape']}: exact, kernel "
         f"{k_ms:.4f} ms (wrapper {w_ms:.4f}), plain {p_ms:.4f} ms, bound "
         f"{e['bound_ms']:.4f} ms, reuse {e['reuse']:.2f}, bin w/h quartiles "
         + "/".join(f"{v:.2f}" for v in e["bin_w_q"]) + " | "
@@ -876,33 +943,52 @@ def _regime_rois(feat, kw, seed=5, n=64):
     }
 
 
+def _bf16_spacing(t):
+    """The bfloat16 spacing at each |t| (8 significand bits)."""
+    import torch
+    e = torch.floor(torch.log2(t.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _grad_close(got, want, dtype):
+    """The backward gates (atomic order moves the last bits of the float32
+    sums): float32 within 1e-5 * max|want| + 1e-5 * |want|; bfloat16 within
+    one bfloat16 spacing of the plain version's value + 1e-5 * max|want|.
+    Returns (ok, max error, max |want|)."""
+    import torch
+    want, got = want.float(), got.float()
+    scale = want.abs().max().item() if want.numel() else 0.0
+    err = (got - want).abs()
+    bound = (_bf16_spacing(want) + 1e-5 * scale if dtype == torch.bfloat16
+             else 1e-5 * scale + 1e-5 * want.abs())
+    return (bool((err <= bound).all()),
+            err.max().item() if err.numel() else 0.0, scale)
+
+
 def _backward_check(label, feat_shape, rois, grad, kw, dtype):
-    """The backward kernel against autograd through the plain version, with
-    the output gradient given (R, P, P, C)- and (R, C, P, P)-contiguous:
-    float32 within atol = 1e-5 * max|want|, rtol = 1e-5 (atomic order moves
-    the last bits); bfloat16 against the float32 math on the same bf16
-    gradient at atol = 4e-3 * max|want| + rtol 8e-3 (two bf16 ulps).
-    Neither layout may be copied. Returns (max error, max |want|)."""
+    """The backward kernel against autograd through the plain version on a
+    map of ``dtype``, with the output gradient given (R, P, P, C)- and
+    (R, C, P, P)-contiguous (``_grad_close``: float32 within 1e-5, bfloat16
+    within a spacing of the plain version's bfloat16 map gradient, which
+    sums in float32 and rounds once, as the wrapper does). Neither layout
+    may be copied. Returns (max error, max |want|)."""
     import torch
     from tllod_torch.ops import _kernels
     from tllod_torch.ops.roi_align import roi_align_avg_backward
 
     g = grad.to(dtype).contiguous()
-    out, f = _plain_forward(feat_shape, rois, kw)
-    (want,) = torch.autograd.grad(out, f, g.float())
-    scale = want.abs().max().item()
-    atol, rtol = ((1e-5 * scale, 1e-5) if dtype == torch.float32
-                  else (4e-3 * scale, 8e-3))
+    out, f = _plain_forward(feat_shape, rois, kw, dtype)
+    (want,) = torch.autograd.grad(out, f, g)
     copies = _kernels.launches["roi_align_avg_grad_copy"]
-    err = 0.0
+    err, scale = 0.0, 0.0
     for layout, gl in (("rppc", g),
                        ("rcpp", g.permute(0, 3, 1, 2).contiguous()
                         .permute(0, 2, 3, 1))):
         got = roi_align_avg_backward(gl, rois, feat_shape, **kw).to(dtype)
         torch.cuda.synchronize()
-        e = (got.float() - want).abs().max().item()
+        ok, e, scale = _grad_close(got, want, dtype)
         err = max(err, e)
-        if not torch.allclose(got.float(), want, atol=atol, rtol=rtol):
+        if not ok:
             raise RuntimeError(f"roi_align_avg_backward {label} {dtype} "
                                f"{layout}: max err {e} (max |want| {scale})")
     if _kernels.launches["roi_align_avg_grad_copy"] != copies:
@@ -968,32 +1054,37 @@ def roi_pool_launcher(feat, rois, kw, grad=None, lanes=None):
     b, h, w, c = feat.shape
     r, p = rois.shape[0], kw["out_size"]
     scale = float(kw["spatial_scale"])
+    code = rp._DTYPE_CODE[feat.dtype]
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
     if grad is None:
-        out = torch.empty((r, p, p, c), device=feat.device)
+        out = torch.empty((r, p, p, c), device=feat.device, dtype=feat.dtype)
         vec = rp.vector_width(c, feat)
         n = lanes or rp.lanes(c, p, vec)
         keep = (feat, rois)
 
         def call():
             _kernels.check(lib, lib.tllod_roi_pool_forward(
-                feat.data_ptr(), rois.data_ptr(), out.data_ptr(), b, h, w, c,
-                r, p, scale, vec, n, stream()), "roi_pool")
+                feat.data_ptr(), rois.data_ptr(), out.data_ptr(), code, b, h,
+                w, c, r, p, scale, vec, n, stream()), "roi_pool")
     else:
-        g = grad.contiguous()
-        out = torch.empty((b, h, w, c), device=feat.device)
+        g = grad.to(feat.dtype).contiguous()
+        out = torch.empty((b, h, w, c), device=feat.device, dtype=feat.dtype)
+        # the bfloat16 backward's float32 scratch map
+        scratch = (torch.empty((b, h, w, c), device=feat.device)
+                   if feat.dtype == torch.bfloat16 else None)
         vec = rp.vector_width(c, feat, g)
         n = lanes or rp.lanes(c, p, vec, backward=True)
-        keep = (g, feat, rois)
+        keep = (g, feat, rois, scratch)
 
         def call():
             _kernels.check(lib, lib.tllod_roi_pool_backward(
                 g.data_ptr(), feat.data_ptr(), rois.data_ptr(),
-                out.data_ptr(), b, h, w, c, r, p, scale, vec, n, stream()),
-                "roi_pool_backward")
+                out.data_ptr(), None if scratch is None
+                else scratch.data_ptr(), code, b, h, w, c, r, p, scale, vec,
+                n, stream()), "roi_pool_backward")
     call.keep, call.out = keep, out
     return call
 
@@ -1034,14 +1125,15 @@ def _lane_widths(feat, p, backward=False):
     vec = vector_width(feat.shape[-1], feat)
     picked = lanes(feat.shape[-1], p, vec, backward)
     legal = [n for n, most in ((8, 64), (16, 32), (32, 16))
-             if p <= most and (n == 8 or vec == 4)]
+             if p <= most and (n == 8 or vec > 1)]
     return [picked] + [n for n in legal if n != picked]
 
 
 def _roi_pool_forward_check(label, feat, rois, kw, widths):
     """The forward through the wrapper and, through the C interface, at
-    each chunk width in ``widths``, each float32 bit-equal to the plain
-    version (computed once). Returns the wrapper's output."""
+    each chunk width in ``widths``, each bit-equal to the plain version
+    (computed once), float32 or bfloat16 (a max of bfloat16 values is one
+    of them). Returns the wrapper's output."""
     import torch
     from tllod_torch.ops.roi_pool import roi_pool, roi_pool_plain
 
@@ -1071,6 +1163,7 @@ def _roi_pool_entry(label, feat, rois, kw, launches):
 
     b, h, w, c = feat.shape
     r, p = rois.shape[0], kw["out_size"]
+    es = feat.element_size()
     widths = _lane_widths(feat, p)
     got = _roi_pool_forward_check(label, feat, rois, kw, widths)
     _roi_pool_forward_check(f"{label} (tie map)", _tie_map(feat), rois, kw,
@@ -1084,9 +1177,10 @@ def _roi_pool_entry(label, feat, rois, kw, launches):
     covered, area = _roi_pool_work(feat.shape, rois, kw)
     # each distinct pixel read once, the output written once; one compare
     # per channel of every pixel of every bin
-    nbytes = covered * c * 4 + got.numel() * 4 + rois.numel() * 4
-    e = _entry("roi_pool", f"{label}: float32 map {b}x{h}x{w}x{c}, {r} "
-               f"rois, P={p}", launches, 0.0, k_ms, p_ms, nbytes, area * c,
+    nbytes = covered * c * es + got.numel() * es + rois.numel() * 4
+    e = _entry("roi_pool", f"{label}: {str(feat.dtype)[6:]} map "
+               f"{b}x{h}x{w}x{c}, {r} rois, P={p}", launches, 0.0, k_ms,
+               p_ms, nbytes, area * c,
                exact=True, tie_map_exact=True, wrapper_ms=w_ms,
                event_ms=event_ms, lanes=widths[0], lanes_ms=lanes_ms,
                distinct_map_pixels=covered, bin_pixels=area)
@@ -1104,12 +1198,16 @@ def _roi_pool_entry(label, feat, rois, kw, launches):
 def _roi_pool_backward_check(label, feat, rois, grad, kw, widths):
     """The backward through the wrapper and, through the C interface, at
     each chunk width in ``widths``, each against autograd through the
-    plain version (computed once): within atol = 1e-5 * max|want|, rtol
-    1e-5 (atomic order over overlapping bins moves the last bits). Returns
-    (max error, max |want|, the plain version's graph for timing)."""
+    plain version (computed once) on a map of ``feat``'s type
+    (``_grad_close``: float32 within 1e-5, the atomic order over
+    overlapping bins moving the last bits; bfloat16 within one spacing of
+    the plain version's bfloat16 map gradient, which sums in float32 and
+    rounds once, as the kernel's scratch and cast do). Returns (max error,
+    max |want|, the plain version's graph for timing)."""
     import torch
     from tllod_torch.ops.roi_pool import roi_pool_backward, roi_pool_plain
 
+    grad = grad.to(feat.dtype)
     f = feat.clone().requires_grad_(True)
     out = roi_pool_plain(f, rois, **kw)
     (want,) = torch.autograd.grad(out, f, grad, retain_graph=True)
@@ -1119,12 +1217,11 @@ def _roi_pool_backward_check(label, feat, rois, grad, kw, widths):
         call()
         gots.append((n, call.out))
     torch.cuda.synchronize()
-    scale = want.abs().max().item()
-    err = 0.0
+    err, scale = 0.0, 0.0
     for n, got in gots:
-        e = (got - want).abs().max().item()
+        ok, e, scale = _grad_close(got, want, feat.dtype)
         err = max(err, e)
-        if not torch.allclose(got, want, atol=1e-5 * scale, rtol=1e-5):
+        if not ok:
             raise RuntimeError(f"roi_pool_backward {label} (lanes {n}): max "
                                f"err {e} (max |want| {scale})")
     return err, scale, (out, f)
@@ -1141,6 +1238,7 @@ def _roi_pool_backward_entry(label, feat, rois, grad, kw, launches):
     from tllod_torch.ops.roi_pool import roi_pool_backward
 
     p = kw["out_size"]
+    grad = grad.to(feat.dtype)
     widths = _lane_widths(feat, p, backward=True)
     err, scale, (out, f) = _roi_pool_backward_check(label, feat, rois, grad,
                                                     kw, widths)
@@ -1155,15 +1253,17 @@ def _roi_pool_backward_entry(label, feat, rois, grad, kw, launches):
     p_ms = cuda_ms(lambda: torch.autograd.grad(out, f, grad,
                                                retain_graph=True), reps=3)
     b, h, w, c = feat.shape
-    r = rois.shape[0]
+    r, es = rois.shape[0], feat.element_size()
     covered, area = _roi_pool_work(feat.shape, rois, kw)
     # the map's read pixels and the output gradient read once, the map
     # gradient written once; per bin pixel and channel a max and a tie test
-    nbytes = (covered * c * 4 + grad.numel() * 4 + rois.numel() * 4
-              + b * h * w * c * 4)
-    e = _entry("roi_pool_backward", f"{label}: float32 grad {r}x{p}x{p}x{c}"
-               f" -> map {b}x{h}x{w}x{c}", launches, err, k_ms, p_ms, nbytes,
-               2 * area * c, tolerance={"atol": 1e-5 * scale, "rtol": 1e-5},
+    nbytes = (covered * c * es + grad.numel() * es + rois.numel() * 4
+              + b * h * w * c * es)
+    tol = ({"atol": 1e-5 * scale, "rtol": 1e-5} if es == 4
+           else {"bf16_spacings": 1, "atol": 1e-5 * scale})
+    e = _entry("roi_pool_backward", f"{label}: {str(feat.dtype)[6:]} grad "
+               f"{r}x{p}x{p}x{c} -> map {b}x{h}x{w}x{c}", launches, err,
+               k_ms, p_ms, nbytes, 2 * area * c, tolerance=tol,
                max_abs_want=scale, tie_map_max_abs_err=tie_err,
                tie_map_max_abs_want=tie_scale, wrapper_ms=w_ms,
                event_ms=event_ms, lanes=widths[0], lanes_ms=lanes_ms,
@@ -1230,13 +1330,15 @@ def _roi_pool_sets(feat, main_rois, kw):
             errs.append(_roi_pool_backward_check(name, m, rois, g, skw,
                                                  widths)[:2])
         covered, area = _roi_pool_work(f.shape, rois, skw)
-        rec = {"set": label, "rois": rois.shape[0], "out_size": p,
+        rec = {"set": label, "dtype": str(f.dtype)[6:],
+               "rois": rois.shape[0], "out_size": p,
                "channels": f.shape[-1], "lanes": widths,
                "bwd_max_abs_err": max(e for e, _ in errs),
                "bwd_max_abs_want": max(s for _, s in errs),
                "distinct_map_pixels": covered, "bin_pixels": area}
         records.append(rec)
-        log(f"[parity] roi_pool {label}: {rec['rois']} rois, P={p}, C="
+        log(f"[parity] roi_pool {rec['dtype']} {label}: {rec['rois']} "
+            f"rois, P={p}, C="
             f"{rec['channels']}: forward exact (lanes "
             + "/".join(map(str, widths)) + ", and on the tie map); backward "
             f"err {rec['bwd_max_abs_err']:.3g} of "
@@ -1683,8 +1785,9 @@ def _device_breakdown(prof, wall_ms, label, trace_path):
 
 
 def kernel_kind(name: str) -> str:
-    """A device event's kind by its name: the float32 GEMMs of the fc and
-    1x1 layers (cuBLAS/CUTLASS), the convolutions (cuDNN implicit GEMMs),
+    """A device event's kind by its name: the GEMMs of the fc and 1x1
+    layers (cuBLAS/CUTLASS; cuBLASLt's ``nvjet`` kernels at bfloat16), the
+    convolutions (cuDNN implicit GEMMs),
     the SGD update and clip, the hand kernels, pools, copies and fills, and
     the rest (elementwise and reductions)."""
     n = name.lower()
@@ -1692,7 +1795,8 @@ def kernel_kind(name: str) -> str:
                        ("roi_pool", ("roi_pool",)),
                        ("conv", ("implicit_gemm", "conv", "wgrad", "dgrad",
                                  "fprop")),
-                       ("gemm", ("gemm",)), ("sgd", ("multi_tensor_apply",)),
+                       ("gemm", ("gemm", "nvjet")),
+                       ("sgd", ("multi_tensor_apply",)),
                        ("pool", ("pool",)),
                        ("copy/fill", ("memcpy", "memset", "copy", "fill",
                                       "catarray"))):
@@ -1786,6 +1890,7 @@ class TrainMethod(NamedTuple):
     loss_groups: tuple = ()
     separation: float = None
     all_train: bool = False
+    loss_rtol: float = 1e-4          # card-vs-CPU loss limit (bf16: looser)
 
     def loss(self, out):
         import importlib
@@ -1808,14 +1913,16 @@ class TrainMethod(NamedTuple):
                                         device=batch["im_data"].device)
         return batch
 
-    def build(self, cfg, seed, device):
-        """The model with weights from ``seed`` and the extra step
-        arguments (PT-MAF's frozen teacher, weights from another seed)."""
+    def build(self, cfg, seed, device, dtype=None):
+        """The model with weights from ``seed`` (and the compute type
+        ``dtype``, ``--bf16``'s) and the extra step arguments (PT-MAF's
+        frozen teacher, weights from another seed)."""
         import importlib
         from tllod_torch.models.faster_rcnn import FasterRCNN
         mod = importlib.import_module(f"tllod_torch.methods.{self.name}")
-        model = getattr(mod, self.model)(len(self.classes), cfg, self.net,
-                                         device=device, seed=seed)
+        model = getattr(mod, self.model)(
+            len(self.classes), cfg, self.net, device=device, seed=seed,
+            **({} if dtype is None else {"dtype": dtype}))
         if not self.teacher:
             return model, ()
         teacher = FasterRCNN(len(self.classes), cfg, self.net, device=device,
@@ -1823,10 +1930,13 @@ class TrainMethod(NamedTuple):
         return model, (teacher.requires_grad_(False),)
 
     def cpu_copy(self, model, extra):
-        """The same weights on the CPU."""
+        """The same weights (and compute type) on the CPU."""
+        import torch
         from tllod_torch.models.faster_rcnn import FasterRCNN
+        dtype = model.detector.compute_dtype
         cpu = type(model)(len(self.classes), model.cfg, self.net,
-                          device="cpu")
+                          device="cpu", **({} if dtype == torch.float32
+                                           else {"dtype": dtype}))
         cpu.load_state_dict({k: v.cpu() for k, v in
                              model.state_dict().items()})
         out = []
@@ -1941,6 +2051,28 @@ def make_train_batch(h, w, domain, seed, cfg, device,
             "domain": torch.tensor([domain], device=device)}
 
 
+def phase_optimizer(spec, cfg, model, optimizer="sgd"):
+    """The train CLIs' optimizer for a phase's model, as
+    ``utils.optim.build_optimizer`` builds it: ``optimizer`` "sgd", "sgd
+    bf16" (``--bf16_momentum``) or "adam" (``--o adam``); momentum 0.9, the
+    config's decay and bias rate (vgg16: 5e-4, x2; res101: 1e-4, x1), the
+    clip at 10 for vgg16 only; one long epoch, so no decay step falls in
+    the run."""
+    import torch
+    from tllod_torch.utils.optim import SGD, Adam, epoch_decay_schedule
+
+    common = dict(weight_decay=cfg.TRAIN.WEIGHT_DECAY,
+                  double_bias=cfg.TRAIN.DOUBLE_BIAS,
+                  clip_norm=10.0 if spec.net == "vgg16" else None)
+    schedule = epoch_decay_schedule(spec.lr, 10 ** 6, 6)
+    if optimizer == "adam":
+        return Adam(model.named_parameters(), schedule, **common)
+    return SGD(model.named_parameters(), schedule,
+               momentum=cfg.TRAIN.MOMENTUM,
+               momentum_dtype=(torch.bfloat16 if optimizer == "sgd bf16"
+                               else torch.float32), **common)
+
+
 def train_phase(spec, cfg, seed, out_dir):
     """Full-width train steps of the method ``spec`` at ``spec.train_hw``
     through ``train_step``; both RoIAlignAvg kernels and the proposal NMS
@@ -1952,7 +2084,6 @@ def train_phase(spec, cfg, seed, out_dir):
     from tllod_torch.config import Config, cfg_from_list
     from tllod_torch.ops import _kernels
     from tllod_torch.train import train_step
-    from tllod_torch.utils.optim import SGD, epoch_decay_schedule
 
     if spec.cfg_pairs:
         cfg = cfg_from_list(Config(), spec.cfg_pairs)
@@ -1965,15 +2096,7 @@ def train_phase(spec, cfg, seed, out_dir):
     tgt = make_train_batch(*spec.train_hw, 0, seed + 11, cfg, dev, nc)
     if spec.net.startswith("res"):
         calibrate_stem(model.detector, src["im_data"])
-    # momentum 0.9, and as build_optimizer: the config's decay and bias
-    # rate (vgg16: 5e-4, x2; res101: 1e-4, x1), the clip at 10 for vgg16
-    # only; one long epoch, so no decay step falls in the run
-    opt = SGD(model.named_parameters(),
-              epoch_decay_schedule(spec.lr, 10 ** 6, 6),
-              momentum=cfg.TRAIN.MOMENTUM,
-              weight_decay=cfg.TRAIN.WEIGHT_DECAY,
-              double_bias=cfg.TRAIN.DOUBLE_BIAS,
-              clip_norm=10.0 if spec.net == "vgg16" else None)
+    opt = phase_optimizer(spec, cfg, model)
     n_params = sum(p.numel() for p in model.parameters())
     n_train = sum(p.numel() for p in opt.named_params().values())
     t = cfg.TRAIN
@@ -2278,7 +2401,8 @@ def supervised_phase(cfg, seed, out_dir):
             "busy_ms_by_kind": kinds, "fused": fused}
 
 
-def _profile_train_step(step, i, out_dir, pool, channels, spec, gt_rows):
+def _profile_train_step(step, i, out_dir, pool, channels, spec, gt_rows,
+                        suffix=""):
     """One profiled train step: the device breakdown (busy ms, wall ms, top
     kernels, ms by kind), and the copies around the RoI pooling kernels:
     the copy kernels of every op that takes a tensor of the pooled shapes,
@@ -2298,10 +2422,10 @@ def _profile_train_step(step, i, out_dir, pool, channels, spec, gt_rows):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     name = "train" if spec.name == "daf" else f"{spec.name}_train"
-    trace = os.path.join(out_dir, f"chip_smoke_{name}_trace.json")
+    trace = os.path.join(out_dir, f"chip_smoke_{name}{suffix}_trace.json")
     busy, top, kinds = _device_breakdown(
-        prof, wall_ms, "train step" if spec.name == "daf"
-        else f"{spec.name} train step", trace)
+        prof, wall_ms, ("train step" if spec.name == "daf"
+                        else f"{spec.name} train step") + suffix, trace)
     club_rows = (gt_rows, 2 * gt_rows) if spec.pool_sites else ()
     copies = [cp for cp in _layout_copies(trace, pool, (channels,))
               if cp[1][0][0] not in club_rows]
@@ -2464,13 +2588,15 @@ def _capture_train(spec, model, extra, src, tgt):
     return calls, nms_calls, pool_calls
 
 
-def _plain_forward(feat_shape, rois, kw):
-    """The plain version's output on a float32 map of ``feat_shape`` that
-    requires a gradient (the map gradient does not depend on the map)."""
+def _plain_forward(feat_shape, rois, kw, dtype=None):
+    """The plain version's output on a map of ``feat_shape`` (float32 or
+    ``dtype``) that requires a gradient (the map gradient does not depend
+    on the map)."""
     import torch
     from tllod_torch.ops.roi_align import roi_align_avg_plain
 
-    f = torch.zeros(feat_shape, device=rois.device, requires_grad=True)
+    f = torch.zeros(feat_shape, device=rois.device, requires_grad=True,
+                    dtype=dtype or torch.float32)
     return roi_align_avg_plain(f, rois, **kw), f
 
 
@@ -2489,22 +2615,23 @@ def _backward_entry(label, feat_shape, rois, grad, kw, dtype, launches,
     k_ms = cuda_ms(roi_align_launcher(g, rois, kw, feat_shape), reps=50)
     k0_ms = cuda_ms(roi_align_launcher(g.contiguous(), rois, kw, feat_shape),
                     reps=50)
-    out, f = _plain_forward(feat_shape, rois, kw)
-    p_ms = cuda_ms(lambda: torch.autograd.grad(out, f, g.float(),
+    out, f = _plain_forward(feat_shape, rois, kw, dtype)
+    p_ms = cuda_ms(lambda: torch.autograd.grad(out, f, g,
                                                retain_graph=True), reps=5)
     b, h, w, c = feat_shape
     r, p = rois.shape[0], kw["out_size"]
-    # the output gradient read once, the float32 map gradient written once
-    nbytes = g.element_size() * g.numel() + rois.numel() * 4 + b * h * w * c * 4
+    # the output gradient read once, the map gradient written once
+    nbytes = (g.element_size() * (g.numel() + b * h * w * c)
+              + rois.numel() * 4)
     # per (RoI, channel, sample): the 2x2 sum (3 adds, 1 mul) and four
     # corners (2 mul, 1 add each)
     ops = r * c * (p + 1) ** 2 * 16
-    atol, rtol = ((1e-5 * scale, 1e-5) if dtype == torch.float32
-                  else (4e-3 * scale, 8e-3))
+    tol = ({"atol": 1e-5 * scale, "rtol": 1e-5} if dtype == torch.float32
+           else {"bf16_spacings": 1, "atol": 1e-5 * scale})
     e = _entry("roi_align_avg_backward",
                f"{label}: {str(dtype)[6:]} grad {r}x{p}x{p}x{c} -> map "
                f"{b}x{h}x{w}x{c}", launches, err, k_ms, p_ms, nbytes, ops,
-               tolerance={"atol": atol, "rtol": rtol}, max_abs_want=scale,
+               tolerance=tol, max_abs_want=scale,
                wrapper_ms=w_ms, kernel_ms_rppc=k0_ms,
                **roi_reuse_stats(feat_shape, rois, p, kw["spatial_scale"]))
     log(f"[{tag}-parity] roi_align_avg_backward {e['shape']}: max err "
@@ -2514,32 +2641,27 @@ def _backward_entry(label, feat_shape, rois, grad, kw, dtype, launches,
     return e
 
 
-def _backward_parity(spec, calls, launches):
-    """Both RoIAlignAvg kernels on the train path's own tensors, each with
-    its launch count from the timed steps: the forward at every site, the
+def _backward_parity(spec, calls, launches, bf16=False):
+    """Both RoIAlignAvg kernels on the train path's own tensors (maps of
+    the step's type: float32, or bfloat16 under ``bf16``), each with its
+    launch count from the timed steps: the forward at every site, the
     backward where a gradient reached the output (not the teacher's)."""
-    import torch
-
     prefix = "train" if spec.name == "daf" else f"{spec.name} train"
     entries = []
     for site, rec in zip(spec.roi_sites, calls):
+        dt = rec["feat"].dtype
         entries.append(_roi_align_entry(
-            rec["feat"], rec["rois"], rec["kw"], torch.float32,
-            launches.get("roi_align_avg", 0), label=f"{prefix} {site}"))
+            rec["feat"], rec["rois"], rec["kw"], dt,
+            launches.get("roi_align_avg", 0),
+            label=("bf16 " if bf16 else "") + f"{prefix} {site}"))
         if "grad" not in rec:
             continue
         label = site if spec.name == "daf" else f"{spec.name} {site}"
-        entries.append(_backward_entry(label, tuple(rec["feat"].shape),
-                                       rec["rois"], rec["grad"], rec["kw"],
-                                       torch.float32,
-                                       launches.get("roi_align_avg_backward",
-                                                    0), spec.tag))
-    if spec.name == "daf":
-        # the train path runs float32 only: the bf16 variant has no launches
-        rec = calls[0]
-        entries.append(_backward_entry("source", tuple(rec["feat"].shape),
-                                       rec["rois"], rec["grad"], rec["kw"],
-                                       torch.bfloat16, 0))
+        entries.append(_backward_entry(
+            ("bf16 " if bf16 else "") + label, tuple(rec["feat"].shape),
+            rec["rois"], rec["grad"], rec["kw"], dt,
+            launches.get("roi_align_avg_backward", 0),
+            "bf16" if bf16 else spec.tag))
     return entries
 
 
@@ -2564,6 +2686,7 @@ def _train_hooks(m, record_terms: bool):
     def add_terms(key, ch_dim):
         def hook(g):
             dims = [d for d in range(g.dim()) if d != ch_dim % g.dim()]
+            g = g.float()
             new = [g.sum(dim=dims), g.abs().sum(dim=dims)]
             old = rec["terms"].get(key)
             rec["terms"][key] = new if old is None else [
@@ -2666,7 +2789,8 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
                            f"{outs['cpu']['fg_cnt']} on the CPU")
     diff = {key: abs(outs["card"][key] - outs["cpu"][key])
             for key in outs["cpu"]}
-    if any(d > 1e-4 * abs(outs["cpu"][key]) + 1e-5
+    atol = 1e-5 if spec.loss_rtol <= 1e-4 else 1e-3
+    if any(d > spec.loss_rtol * abs(outs["cpu"][key]) + atol
            for key, d in diff.items()):
         raise RuntimeError(f"train reference pair {k} losses: {outs}")
     if set(grads["card"]) != set(grads["cpu"]):
@@ -2692,6 +2816,10 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
     # the sum of its terms' magnitudes, the scale that bounds the rounding
     # error of a sum whose terms cancel (their ratio: ``cancel``)
     terms = recs["cpu"]["terms"]
+    # a bfloat16 layer's bias gradient is its terms' sum rounded once to
+    # bfloat16 (2^-9 relative), a float32 one's exact to 1e-4
+    sum_tol = (1e-4 if model.detector.compute_dtype == torch.float32
+               else 1e-2)
     err, cancel, sq_diff, sq_want = {}, {}, 0.0, 0.0
     for key, want in grads["cpu"].items():
         d = (grads["card"][key] - want).norm().item()
@@ -2701,7 +2829,7 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
         if key in terms:
             signed, mags = (t.detach().cpu() for t in terms[key])
             a = mags.norm().item()
-            if (signed - want).norm().item() > 1e-4 * a:
+            if (signed - want).norm().item() > sum_tol * a:
                 raise RuntimeError(f"train reference: the recorded terms of "
                                    f"{key} do not sum to its gradient")
             cancel[key] = a / max(w, 1e-30)
@@ -2791,6 +2919,380 @@ def check_train_reference(spec, model, extra, cfg, seed):
 
 
 
+# ``--bf16``: the five methods whose JAX runner passes the dtype; timed
+# steps a path under ``--bf16``, ``--o adam`` and ``--bf16_momentum``
+# (fewer than phase 5's: the eager step is host-bound, and the profile
+# carries the device breakdown)
+BF16_METHODS = ("daf", "maf", "atf", "pa_atf", "us_daf")
+FLAG_STEPS = 5
+# DAF's card-vs-CPU bf16 pair: losses within BF16_REF_LOSS relative (+ 1e-3
+# absolute), gradients as ``spec.limits`` reads them (all parameters, the
+# median one, the worst one): about twice the larger reading of seeds 0
+# and 1 on an H100 (PERF.md section 6; 0.0144, and 0.107, 0.0216, 3.3),
+# rounded up as the float32 limits. The worst are the instance head's:
+# its sigmoid saturates at random weights, where a bfloat16 probability is
+# a multiple of 2^-8 from 1, cuDNN and oneDNN round a product a spacing
+# apart, and the BCE's 1 / (1 - p) carries that into the gradient whole
+BF16_REF_LOSS = 5e-2
+BF16_REF_LIMITS = (0.5, 5e-2, 10.0)
+
+
+def _straddle_rois(feat, kw, seed=9, n=24):
+    """RoIs on the c3 map (stride 4, 300 columns) whose bins cross columns
+    256-300, where the bfloat16 coordinates of JAX's membership test round
+    (column 257 reads 256): wide ones, narrow ones whose 1-column bins sit
+    on odd columns past 256 (no cell: JAX's fill), and the zero-padded gt
+    row."""
+    import torch
+
+    s = 1.0 / kw["spatial_scale"]
+    _, h, w, _ = feat.shape
+    rng = np.random.RandomState(seed)
+    rows = [[0, 257 * s, 8 * s, 257 * s, 40 * s],
+            [0, 259 * s, 60 * s, 265 * s, 90 * s],
+            [0, 250 * s, 0, (w - 1) * s, (h - 1) * s], [0, 0, 0, 0, 0]]
+    for _ in range(n):
+        x1 = rng.uniform(240, w - 2) * s
+        y1 = rng.uniform(0, h - 4) * s
+        rows.append([0, x1, y1, min(x1 + rng.uniform(2, 60) * s,
+                                    (w - 1) * s),
+                     min(y1 + rng.uniform(2, 60) * s, (h - 1) * s)])
+    return torch.tensor(rows, dtype=torch.float32, device=feat.device)
+
+
+def _forward_losses(spec, model, extra, src, tgt, seed):
+    """One train-mode forward's metrics with the step's draws (no update)."""
+    import torch
+    from tllod_torch.train import StepRandom, step_metrics
+
+    with torch.no_grad():
+        out = model(src, tgt, *extra, training=True,
+                    rng=StepRandom(seed, 0, src["im_data"].device))
+        return {k: float(v) for k, v in step_metrics(
+            out, spec.loss(out)).items()}
+
+
+def bf16_phase(spec, cfg, seed, out_dir):
+    """``[bf16]``: the method ``spec`` (DAF, MAF, ATF, PA-ATF, US-DAF) as
+    ``--bf16`` builds it, at phase 5's widths, images and SGD: the loss
+    drift of one forward against the float32 model from the same state and
+    draws; DAF's card against CPU on one pair; TRAIN_WARMUP steps, then
+    FLAG_STEPS timed ones, launch counters set to 0 just before and read
+    just after, each kernel once a step at each of its sites as in float32
+    and no gradient-layout copy; finite losses; ms/step, peak memory; one
+    profiled step (busy, kinds); then every RoIAlignAvg and RoIPool call of
+    a step held to its plain version on its own bfloat16 tensors (forward
+    ``torch.equal``, backward within one bfloat16 spacing + 1e-5 x
+    max|want|), PA-ATF's c3 map also on RoIs across columns 256-300 and its
+    c5 map on phase 4's RoIPool sets. Returns (kernel entries, summary,
+    (model, extra, optimizer, source, target))."""
+    import torch
+    from tllod_torch.config import Config, cfg_from_list
+    from tllod_torch.ops import _kernels
+    from tllod_torch.train import train_step
+
+    if spec.cfg_pairs:
+        cfg = cfg_from_list(Config(), spec.cfg_pairs)
+    dev = torch.device("cuda")
+    tag = f"bf16 {spec.name}"
+    model, extra = spec.build(cfg, seed, dev, dtype=torch.bfloat16)
+    nc = len(spec.classes)
+    src = spec.add_fields(make_train_batch(*spec.train_hw, 1, seed + 10,
+                                           cfg, dev, nc))
+    tgt = make_train_batch(*spec.train_hw, 0, seed + 11, cfg, dev, nc)
+    if spec.net.startswith("res"):
+        calibrate_stem(model.detector, src["im_data"])
+    opt = phase_optimizer(spec, cfg, model)
+    torch.backends.cudnn.allow_tf32 = True          # the defaults, as eval
+    f32, f32_extra = spec.build(cfg, seed, dev)
+    f32.load_state_dict(model.state_dict())
+    want = _forward_losses(spec, f32, f32_extra, src, tgt, seed)
+    del f32, f32_extra
+    torch.cuda.empty_cache()
+    got = _forward_losses(spec, model, extra, src, tgt, seed)
+    drift = {k: (got[k] - want[k]) / max(abs(want[k]), 1e-6)
+             for k in want if k != "fg_cnt"}
+    log(f"[{tag}] drift of one bf16 forward against float32 from the same "
+        f"state and draws (fg_cnt {got['fg_cnt']:.0f} / {want['fg_cnt']:.0f}"
+        "): " + ", ".join(f"{k} {v:+.3g}" for k, v in sorted(drift.items())))
+
+    ref = None
+    if spec.name == "daf":
+        torch.backends.cudnn.allow_tf32 = False
+        ref = check_train_reference(
+            spec._replace(tag=tag, ref_pairs=1, limits=BF16_REF_LIMITS,
+                          loss_rtol=BF16_REF_LOSS), model, extra, cfg, seed)
+        torch.backends.cudnn.allow_tf32 = True
+
+    def step(i):
+        return train_step(model, spec.loss, opt, (src, tgt, *extra),
+                          seed=seed, step=i)
+
+    for i in range(TRAIN_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + FLAG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(step(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {"roi_align_avg": len(spec.roi_sites),
+                "roi_align_avg_backward": len(spec.roi_sites),
+                "nms": len(spec.nms_sites),
+                "roi_pool": len(spec.pool_sites),
+                "roi_pool_backward": len(spec.pool_sites)}
+    log(f"[{tag}] launches {launches}")
+    for name, n in per_step.items():
+        if launches.get(name, 0) != n * FLAG_STEPS:
+            raise RuntimeError(f"bf16 {spec.name} train path launched "
+                               f"{name} {launches.get(name, 0)} times in "
+                               f"{FLAG_STEPS} steps, {n} a step expected")
+    for name in ("roi_align_avg_grad_copy", "roi_pool_grad_copy"):
+        if launches.get(name, 0):
+            raise RuntimeError(f"bf16 {spec.name} train path: {name}")
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"non-finite bf16 {spec.name} metrics at "
+                               f"step {i}: {vals}")
+        log(f"[{tag}] step {TRAIN_WARMUP + i}: {times[i]:.3f} ms | "
+            + ", ".join(f"{k} {v:.5f}" for k, v in sorted(vals.items())))
+    ms = float(np.median(times))
+    log(f"[{tag}] {ms:.3f} ms/step (median of {FLAG_STEPS} steps), peak "
+        f"memory {peak:.2f} GiB")
+    busy, wall, top, kinds, copies, pool_copies = _profile_train_step(
+        step, TRAIN_WARMUP + FLAG_STEPS, out_dir, cfg.POOLING_SIZE,
+        model.detector.dout_base_model, spec,
+        cfg.MAX_NUM_GT_BOXES * src["gt_boxes"].shape[0], suffix="_bf16")
+
+    torch.backends.cudnn.allow_tf32 = False
+    calls, _, pool_calls = _capture_train(spec, model, extra, src, tgt)
+    if any(c["feat"].dtype != torch.bfloat16 for c in calls + pool_calls):
+        raise RuntimeError(f"bf16 {spec.name}: a pooling kernel ran on a "
+                           f"float32 map")
+    entries = _backward_parity(spec, calls, launches, bf16=True)
+    sets = []
+    for site, rec in zip(spec.pool_sites, pool_calls):
+        label = f"bf16 {spec.name} train {site}"
+        entries += [_roi_pool_entry(label, rec["feat"], rec["rois"],
+                                    rec["kw"], launches["roi_pool"]),
+                    _roi_pool_backward_entry(label, rec["feat"], rec["rois"],
+                                             rec["grad"], rec["kw"],
+                                             launches["roi_pool_backward"])]
+    if spec.pool_sites:
+        c3, kw = pool_calls[0], pool_calls[0]["kw"]
+        straddle = torch.cat([c3["rois"], _straddle_rois(c3["feat"], kw)])
+        label = f"bf16 {spec.name} c3, gt and columns 256-300"
+        entries += [_roi_pool_entry(label, c3["feat"], straddle, kw, 0),
+                    _roi_pool_backward_entry(
+                        label, c3["feat"], straddle, torch.randn(
+                            (straddle.shape[0], 7, 7, c3["feat"].shape[-1]),
+                            device=dev), kw, 0)]
+        c5 = pool_calls[-1]
+        sets = _roi_pool_sets(c5["feat"], c5["rois"], c5["kw"])
+    summary = {"ms_per_step": ms, "step_ms": times, "busy_ms": busy,
+               "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
+               "peak_memory_gib": peak, "launches": launches,
+               "loss_drift_vs_float32": drift, "top_kernels": top,
+               "layout_copies": copies, "roi_pool_copies": pool_copies,
+               "card_vs_cpu": ref, "roi_pool_sets": sets}
+    return entries, summary, (model, extra, opt, src, tgt)
+
+
+def optim_phase(cfg, seed, out_dir):
+    """``[optim]``: DAF's eager step (phase 5's model, images and rate)
+    under the reference SGD, ``--bf16_momentum`` and ``--o adam``, in that
+    order, each on a model from ``seed``: TRAIN_WARMUP steps, then
+    FLAG_STEPS timed ones with the peak memory reset before; finite
+    losses; ms/step, peak memory and the optimizer state's bytes. Then
+    ``fused_phase`` under Adam, its per-state update gate floored at 1e-6
+    relative L2: Adam scales each element's step to about lr whatever the
+    size of its gradient, so the last-bit noise of the atomic sums moves
+    the elements whose gradient is at that noise by a share of lr, and the
+    update gaps of two eager steps from one state (1e-10-2e-8 on the
+    H100) bear no fixed ratio to a replay's (up to 1.5e-7). Returns the
+    summary."""
+    import torch
+    from tllod_torch.train import train_step
+
+    spec = TRAIN_METHODS[0]
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = True
+    src = make_train_batch(*spec.train_hw, 1, seed + 10, cfg, dev)
+    tgt = make_train_batch(*spec.train_hw, 0, seed + 11, cfg, dev)
+    out = {}
+    for name in ("sgd", "sgd bf16", "adam"):
+        model, _ = spec.build(cfg, seed, dev)
+        opt = phase_optimizer(spec, cfg, model, name)
+        state = sum(t.numel() * t.element_size()
+                    for v in opt.state_dict().values() if isinstance(v, dict)
+                    for t in v.values())
+        for i in range(TRAIN_WARMUP):
+            train_step(model, spec.loss, opt, (src, tgt), seed=seed, step=i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(TRAIN_WARMUP, TRAIN_WARMUP + FLAG_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(model, spec.loss, opt, (src, tgt), seed=seed,
+                           step=i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        if not all(np.isfinite(v) for v in losses):
+            raise RuntimeError(f"[optim] {name}: non-finite losses {losses}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[name] = {"ms_per_step": float(np.median(times)),
+                     "step_ms": times, "losses": losses,
+                     "peak_memory_gib": peak, "state_bytes": state}
+        log(f"[optim] DAF {name}: {out[name]['ms_per_step']:.3f} ms/step "
+            f"(median of {FLAG_STEPS}), peak memory {peak:.2f} GiB, "
+            f"optimizer state {state / 2 ** 20:.1f} MiB, losses "
+            + ", ".join(f"{v:.4f}" for v in losses))
+        if name == "adam":
+            out["fused_adam"] = fused_phase(
+                "adam", model, spec.loss, opt, lambda i: (
+                    make_train_batch(*spec.train_hw, 1, seed + 20 + 2 * i,
+                                     cfg, dev),
+                    make_train_batch(*spec.train_hw, 0, seed + 21 + 2 * i,
+                                     cfg, dev)),
+                {"roi_align_avg": 2, "roi_align_avg_backward": 2, "nms": 2},
+                seed, out_dir, update_floor=1e-6)
+        del model, opt
+        torch.cuda.empty_cache()
+    saved = out["sgd"]["state_bytes"] - out["sgd bf16"]["state_bytes"]
+    log(f"[optim] --bf16_momentum keeps {saved / 2 ** 20:.1f} MiB less "
+        f"optimizer state; peak {out['sgd']['peak_memory_gib']:.2f} -> "
+        f"{out['sgd bf16']['peak_memory_gib']:.2f} GiB; adam "
+        f"{out['adam']['peak_memory_gib']:.2f} GiB")
+    return out
+
+
+# tools/overfit_synth.py's learning proof: its set rendered in numpy (the
+# card has no cv2), its SET_CFGS, its DAF recipe (lr 0.002, no decay step
+# within the run) and its --min_map
+OVERFIT_STEPS, OVERFIT_FUSE, OVERFIT_MIN_MAP = 2000, 16, 0.85
+OVERFIT_SET = ["TRAIN.SCALES", "(128,)", "TEST.SCALES", "(128,)",
+               "TRAIN.RPN_PRE_NMS_TOP_N", "600",
+               "TRAIN.RPN_POST_NMS_TOP_N", "64",
+               "TRAIN.BATCH_SIZE", "32", "TRAIN.RPN_BATCHSIZE", "64",
+               "TEST.RPN_PRE_NMS_TOP_N", "300",
+               "TEST.RPN_POST_NMS_TOP_N", "64",
+               "ANCHOR_SCALES", "[2,4,8]", "MAX_NUM_GT_BOXES", "10"]
+OVERFIT_COLORS = [(230, 40, 40), (40, 230, 40), (40, 40, 230),
+                  (230, 230, 40), (230, 40, 230), (40, 230, 230),
+                  (240, 150, 60), (150, 60, 240)]
+OVERFIT_JAX_MAP = 0.9773      # OVERFIT.json "daf": the JAX package, 2000 steps
+
+
+def render_overfit_split(split, n, seed):
+    """One split of ``tools/overfit_synth.py``'s set, drawn with its
+    random stream: 16 images of 128x256, a dark noise background and 3
+    filled rectangles of class colours each (``cv2.rectangle`` with
+    thickness -1 fills both corners), as roidb entries whose ``image`` is
+    the BGR array and whose boxes are the XML's, 0-based."""
+    rng = np.random.RandomState(seed)
+    h, w = 128, 256
+    roidb = []
+    for i in range(n):
+        im = (rng.rand(h, w, 3) * 40).astype(np.uint8)
+        boxes, cls = [], []
+        for _ in range(3):
+            c = rng.randint(len(OVERFIT_COLORS))
+            bw, bh = 30 + rng.randint(30), 24 + rng.randint(24)
+            x1, y1 = rng.randint(0, w - bw - 1), rng.randint(0, h - bh - 1)
+            im[y1:y1 + bh + 1, x1:x1 + bw + 1] = OVERFIT_COLORS[c]
+            boxes.append([x1, y1, x1 + bw, y1 + bh])
+            cls.append(c + 1)
+        roidb.append({"image": im, "img_id": f"{split}_{i:03d}",
+                      "width": w, "height": h, "flipped": False,
+                      "need_crop": 0,
+                      "boxes": np.asarray(boxes, np.float32),
+                      "gt_classes": np.asarray(cls, np.int32),
+                      "gt_ishard": np.zeros(3, np.int32)})
+    return roidb
+
+
+def overfit_phase(seed, out_dir, bf16):
+    """``[overfit]``: the learning proof of ``tools/overfit_synth.py`` on the
+    card. DAF at full VGG16 width, random weights from the config's seed
+    (no pretrained file, as the tool's runs), trained for OVERFIT_STEPS
+    steps through ``cli.da_runner.train_loop`` with ``--fuse_steps``
+    OVERFIT_FUSE (CUDA-graph replays) on the tool's source and target
+    splits with their flipped copies, under ``--bf16`` or not; then the
+    trained detector, loaded into a float32 ``FasterRCNN`` as the eval CLI
+    loads a checkpoint, scores the source training images through
+    ``EvalLoader`` and ``eval_engine.detect_chunks`` and the VOC07 AP of
+    ``data.evaluate``. Fails below OVERFIT_MIN_MAP. Returns the summary."""
+    import torch
+    from tllod_torch.cli.common import build_train_parser
+    from tllod_torch.cli.da_runner import train_loop
+    from tllod_torch.config import Config, cfg_from_list
+    from tllod_torch.data.evaluate import evaluate_detections_roidb
+    from tllod_torch.data.loader import DetectionLoader, EvalLoader
+    from tllod_torch.data.roidb import append_flipped
+    from tllod_torch.eval_engine import detect_chunks
+    from tllod_torch.methods.daf import DAFModel, daf_loss
+    from tllod_torch.models.faster_rcnn import FasterRCNN
+    from tllod_torch.utils.checkpoint import detector_params
+
+    torch.backends.cudnn.allow_tf32 = True          # the CLI's defaults
+    cfg = cfg_from_list(cfg_from_list(Config(), VGG16_CITYSCAPE), OVERFIT_SET)
+    train_s = render_overfit_split("train_s", 16, seed)
+    train_t = render_overfit_split("train_t", 16, seed + 1)
+    save = os.path.join(out_dir, "overfit_bf16" if bf16 else "overfit")
+    args = build_train_parser("overfit").parse_args(
+        ["--net", "vgg16", "--bs", "1", "--lr", "0.002",
+         "--lr_decay_step", "1000", "--epochs", "1000",
+         "--max_steps", str(OVERFIT_STEPS), "--disp_interval", "500",
+         "--save_epoch_interval", "1000", "--save_dir", save,
+         "--fuse_steps", str(OVERFIT_FUSE), "--device", "cuda"]
+        + (["--bf16"] if bf16 else []))
+    loaders = (DetectionLoader(append_flipped(train_s), cfg, domain=1,
+                               seed=cfg.RNG_SEED),
+               DetectionLoader(append_flipped(train_t), cfg, domain=0,
+                               seed=cfg.RNG_SEED + 1))
+    model = DAFModel(len(CLASSES), cfg, "vgg16", device="cuda",
+                     seed=cfg.RNG_SEED,
+                     dtype=torch.bfloat16 if bf16 else torch.float32)
+    tag = "bf16" if bf16 else "float32"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = train_loop("daf", model, lambda out: daf_loss(out, args.lamda),
+                       loaders, lambda src, tgt: (src, tgt), args, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    det = FasterRCNN(len(CLASSES), cfg, "vgg16", device="cuda")
+    det.load_state_dict(detector_params(model.state_dict()))
+    del model
+    res = detect_chunks(det, EvalLoader(train_s, cfg).iter_chunks(1), cfg,
+                        num_classes=len(CLASSES))
+    all_boxes = [[res[i][c] for i in range(len(train_s))]
+                 for c in range(len(CLASSES))]
+    aps = evaluate_detections_roidb(SynthDataset(CLASSES), train_s,
+                                    all_boxes)
+    del det
+    torch.cuda.empty_cache()
+    log(f"[overfit] DAF vgg16 {tag}: {steps} steps (--fuse_steps "
+        f"{OVERFIT_FUSE}, lr 0.002) in {secs:.1f} s of train_loop, train "
+        f"mAP {aps['mAP']:.4f} on the 16 source training images (threshold "
+        f"{OVERFIT_MIN_MAP}; OVERFIT.json's daf entry, the JAX package: "
+        f"{OVERFIT_JAX_MAP} after 2000 steps)")
+    if steps != OVERFIT_STEPS or not aps["mAP"] >= OVERFIT_MIN_MAP:
+        raise RuntimeError(f"overfit {tag}: mAP {aps['mAP']:.4f} after "
+                           f"{steps} steps, {OVERFIT_MIN_MAP} required")
+    return {"dtype": tag, "steps": steps, "train_loop_s": secs,
+            "train_map": aps["mAP"], "aps": aps,
+            "jax_train_map": OVERFIT_JAX_MAP}
+
+
 FUSE_K = 4                  # fused steps held to eager steps from one state
 FUSE_ROUNDS, FUSE_ROUND_STEPS = 3, 10     # timed rounds each way, in turns
 # each kernel's trace name and the launch counter it is credited to
@@ -2853,7 +3355,7 @@ def _trace_counts(prof):
 
 
 def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
-                out_dir):
+                out_dir, update_floor=0.0):
     """Phase 5d (``[fused]``): ``train.TrainStepMulti``, the CUDA-graph
     replays of ``--fuse_steps``, on the train path that the phase before it
     drove, with its model, SGD and config; ``args_for(i)`` gives the
@@ -2879,7 +3381,8 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     sampled RoIs and labels and ``fg_cnt`` equal the eager step's, every
     loss within 1e-6 relative, and its update (the parameters' change, L2
     over all trained parameters) as far from the first eager step's as
-    twice the second eager step's is at most, or 1e-6 where that is 0.
+    twice the second eager step's is at most, or 1e-6 where that is 0,
+    and at least ``update_floor`` (Adam's: see ``optim_phase``).
 
     A ``torch.profiler`` trace of one replay counts ``per_step`` launches
     of each kernel by name. Then eager against graph ms/step in turns,
@@ -2900,9 +3403,9 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
 
     def save():
         return ({k: v.clone() for k, v in model.state_dict().items()},
-                {"trace": {k: v.clone() for k, v in
-                           opt.state_dict()["trace"].items()},
-                 "count": opt.count})
+                {k: ({n: t.clone() for n, t in v.items()}
+                     if isinstance(v, dict) else v)
+                 for k, v in opt.state_dict().items()})
 
     def restore(state):
         model.load_state_dict(state[0])
@@ -3042,7 +3545,8 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     if loss_1 > 1e-6:
         raise RuntimeError(f"{tag} replayed losses off by {loss_1:.3g} "
                            f"relative from the same state")
-    if max(gap_r) > (2 * max(gap_e) if max(gap_e) > 0 else 1e-6):
+    if max(gap_r) > max(2 * max(gap_e) if max(gap_e) > 0 else 1e-6,
+                        update_floor):
         raise RuntimeError(f"{tag} replayed updates off by {max(gap_r):.3g} "
                            f"relative, eager-vs-eager {max(gap_e):.3g}")
 

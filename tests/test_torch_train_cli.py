@@ -187,13 +187,117 @@ def test_pt_maf_train_needs_a_teacher(synth_voc, tmp_path, monkeypatch):
 
 
 def test_unported_train_flags_raise(synth_voc, tmp_path, monkeypatch):
+    """Several processes are not ported: ``--mGPUs``, ``--tp`` and
+    ``--sp`` raise before anything is built."""
     monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
-    for flags in (["--bf16"], ["--mGPUs"]):
+    for flags in (["--mGPUs"], ["--tp", "2"], ["--sp"]):
         with pytest.raises(NotImplementedError):
             _train(str(tmp_path), *flags)
-    for flags in (["--o", "adam"], ["--bf16_momentum"]):
-        with pytest.raises(NotImplementedError):
-            _train(str(tmp_path), "--max_steps", "1", *flags)
+
+
+@pytest.mark.parametrize("flags,state", [
+    (["--bf16"], "trace"), (["--o", "adam"], "mu"),
+    (["--bf16_momentum"], "trace")])
+def test_daf_train_flag_runs_and_resumes(flags, state, synth_voc, tmp_path,
+                                         monkeypatch):
+    """``daf_train`` under ``--bf16``, ``--o adam`` and ``--bf16_momentum``:
+    two steps with finite losses, taken as one ``--fuse_steps 2`` group
+    (the CPU runs them eagerly through the fused trainer), then ``--r`` to
+    step 3 with the optimizer
+    state restored as saved (Adam's ``mu``, ``nu`` and count; the bfloat16
+    trace in bfloat16). Under ``--bf16`` every layer computes in bfloat16
+    while the parameters, the trace and the checkpoint stay float32."""
+    monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
+    monkeypatch.setenv("TLLOD_PRETRAINED_DIR", str(tmp_path / "none"))
+    seen = []
+    resume = da_runner.resume_train_state
+
+    def spy(model, opt, path):
+        out = resume(model, opt, path)
+        seen.append((model, opt, {
+            k: {n: t.clone() for n, t in v.items()} if isinstance(v, dict)
+            else v for k, v in opt.state_dict().items()}))
+        return out
+
+    monkeypatch.setattr(da_runner, "resume_train_state", spy)
+    save = str(tmp_path / "out")
+    out_dir = os.path.join(save, "vgg16_thin", "cityscape")
+    assert _train(save, "--max_steps", "2", "--fuse_steps", "2",
+                  *flags) == 2
+    ckpt = torch.load(os.path.join(out_dir, "daf_1_1_2.pth"),
+                      weights_only=True)
+    opt_state = ckpt["opt_state"]
+    keys = {"adam": {"mu", "nu", "count"}}.get(
+        flags[-1], {"trace", "count"})
+    assert set(opt_state) == keys and opt_state["count"] == 2
+    trace_dtype = (torch.bfloat16 if "--bf16_momentum" in flags
+                   else torch.float32)
+    for k, v in opt_state[state].items():
+        assert v.dtype == trace_dtype, k
+    assert all(v.dtype == torch.float32 for v in ckpt["params"].values())
+    moved = [k for k, v in opt_state[state].items() if v.abs().max() > 0]
+    assert moved
+    for r in _jsonl(os.path.join(out_dir, "metrics.jsonl")):
+        assert all(math.isfinite(v) for k, v in r.items() if "loss" in k), r
+
+    assert _train(save, "--r", "True", "--checkepoch", "1",
+                  "--checkpoint", "2", "--max_steps", "3", *flags) == 3
+    (model, opt, restored), = seen
+    assert restored["count"] == 2
+    for key in keys - {"count"}:
+        for k, v in opt_state[key].items():
+            assert restored[key][k].dtype == v.dtype, k
+            assert torch.equal(restored[key][k], v), k
+    want = torch.bfloat16 if "--bf16" in flags else torch.float32
+    layers = [m for m in model.modules() if hasattr(m, "compute_dtype")
+              and isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    assert layers and {m.compute_dtype for m in layers} == {want}
+    second = torch.load(os.path.join(out_dir, "daf_1_2_3.pth"),
+                        weights_only=True)
+    assert second["opt_state"]["count"] == 3
+    assert any(not torch.equal(v, second["opt_state"][state][k])
+               for k, v in opt_state[state].items())
+
+
+@pytest.mark.parametrize("method", ["mad", "pt_maf", "faster_rcnn"])
+def test_bf16_trains_in_float32_where_jax_ignores_it(method, synth_voc,
+                                                     tmp_path, monkeypatch):
+    """MAD's, PT-MAF's and the supervised JAX scripts build their models
+    without a ``dtype`` (``methods/MAD/MAD_train.py``, ``methods/PT_MAF/
+    PT_MAF_train.py:64``, ``methods/faster_rcnn/faster_rcnn_train.py``):
+    ``--bf16`` is accepted and the checkpoint is the one the run without it
+    writes. One CPU thread: threaded reductions sum in an order that
+    changes from run to run."""
+    import functools
+    from tllod_torch.cli import mad_train
+    from tllod_torch.methods.mad import MADModel
+
+    monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
+    monkeypatch.setenv("TLLOD_PRETRAINED_DIR", str(tmp_path / "none"))
+    monkeypatch.setattr(mad_train, "MADModel",
+                        functools.partial(MADModel, img_size=(12, 20)))
+    cli = importlib.import_module(f"tllod_torch.cli.{method}_train")
+    extra = ["--allow_untrained_teacher"] if method == "pt_maf" else []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    ckpts = []
+    try:
+        for flags in ([], ["--bf16"]):
+            save = str(tmp_path / f"out{len(flags)}")
+            assert _train(save, "--max_steps", "2", *extra, *flags,
+                          cli=cli) == 2
+            ckpts.append(torch.load(os.path.join(
+                save, "vgg16_thin", "cityscape", f"{method}_1_1_2.pth"),
+                weights_only=True))
+            shutil.rmtree(save)          # MAD's checkpoints are 0.5 GB
+    finally:
+        torch.set_num_threads(threads)
+    plain, bf16 = ckpts
+    assert plain["params"].keys() == bf16["params"].keys()
+    for k, v in plain["params"].items():
+        assert torch.equal(v, bf16["params"][k]), k
+    for k, v in plain["opt_state"]["trace"].items():
+        assert torch.equal(v, bf16["opt_state"]["trace"][k]), k
 
 
 def _jsonl(path):

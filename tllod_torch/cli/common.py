@@ -25,8 +25,8 @@ REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
 def build_train_parser(description: str) -> argparse.ArgumentParser:
     """The reference train scripts' flags (``methods/DAF/DAF_train.py:
     44-132``, as ``methods/common.py:27``), plus ``--device`` and
-    ``--cfg``. Flags of features not ported yet are accepted and raise in
-    :func:`check_train_args`."""
+    ``--cfg``. Flags of features not ported yet (several processes) are
+    accepted and raise in :func:`check_train_args`."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--dataset", default="cityscape", type=str)
     p.add_argument("--net", default="vgg16", type=str,
@@ -60,16 +60,18 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
                    help="spatial partitioning: not ported yet (raises)")
     p.add_argument("--cag", dest="class_agnostic", action="store_true")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute: not ported yet (raises)")
+                   help="bfloat16 compute in DAF, MAF, ATF, PA-ATF and "
+                        "US-DAF (float32 parameters, SGD and checkpoints); "
+                        "accepted and float32 elsewhere, as in JAX")
     p.add_argument("--bf16_momentum", action="store_true",
-                   help="bfloat16 momentum: not ported yet (raises)")
+                   help="store the SGD momentum in bfloat16")
     p.add_argument("--fuse_steps", default=1, type=int,
                    help="K train steps per host iteration: on the card K "
                         "replays of a CUDA graph of the whole step")
     p.add_argument("--Mission", default="unnamed", type=str,
                    help="run name, accepted for script compatibility")
     p.add_argument("--o", dest="optimizer", default="sgd", type=str,
-                   help="sgd (adam is not ported yet and raises)")
+                   help="sgd or adam")
     p.add_argument("--lr", default=0.002, type=float)
     p.add_argument("--lr_decay_step", default=6, type=int)
     p.add_argument("--lr_decay_gamma", default=0.1, type=float)
@@ -94,8 +96,8 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
 def check_train_args(args) -> None:
     """Raise for flags whose features are not ported yet."""
     unported = [flag for flag, on in (
-        ("--mGPUs", args.m_chips), ("--tp", args.tp > 1), ("--sp", args.sp),
-        ("--bf16", args.bf16)) if on]
+        ("--mGPUs", args.m_chips), ("--tp", args.tp > 1), ("--sp", args.sp))
+        if on]
     if unported:
         raise NotImplementedError(f"{', '.join(unported)}: not ported yet")
 

@@ -16,6 +16,13 @@ of the whole step) on K batches from each loader padded to one shape, and
 the rest of an epoch step by step, as ``methods/da_runner.py:130-160``.
 ``--profile N`` traces steps [10, 10 + N) into ``<output dir>/profile``.
 
+``--bf16`` builds the model with bfloat16 layers (``methods/da_runner.py:
+75-76``, the only JAX runner that passes a ``dtype``); parameters, the
+optimizer and checkpoints stay float32. PT-MAF's JAX script builds its
+model itself without one, so its CLI passes ``honours_bf16=False`` and
+trains in float32 under ``--bf16``, as do the MAD, IDF and supervised
+CLIs, which run :func:`train_loop` directly.
+
 Not ported from the JAX runner, and raising in
 :func:`tllod_torch.cli.common.check_train_args`: several processes.
 """
@@ -50,7 +57,8 @@ def run_da_training(method_name: str, model_ctor: Callable,
                     extra_model_kwargs: Optional[dict] = None,
                     extra_backbone_subtrees: Sequence[str] = (),
                     step_inputs: Optional[Callable] = None,
-                    meta: Optional[dict] = None) -> int:
+                    meta: Optional[dict] = None,
+                    honours_bf16: bool = True) -> int:
     """Train ``model_ctor(num_classes, cfg, net, class_agnostic, device=,
     seed=, **extra_model_kwargs)`` on the dataset's source and target
     loaders with ``loss_builder(args)(out)``; returns the last step reached.
@@ -61,7 +69,9 @@ def run_da_training(method_name: str, model_ctor: Callable,
     ``step_inputs(model)``, called once after that, gives extra positional
     arguments passed to the model every step after ``(src, tgt)`` (PT-MAF's
     teacher). Checkpoints go to ``<save_dir>/<net>/<dataset>/<method_name>_
-    <session>_<epoch>_<step>.pth``, with ``meta`` added to theirs."""
+    <session>_<epoch>_<step>.pth``, with ``meta`` added to theirs. Under
+    ``--bf16`` the model gets ``dtype=torch.bfloat16`` when
+    ``honours_bf16``."""
     check_train_args(args)
     print("Called with args:", args)
     cfg = resolve_config(args)
@@ -78,9 +88,11 @@ def run_da_training(method_name: str, model_ctor: Callable,
                                domain=0, seed=cfg.RNG_SEED + 1,
                                num_workers=args.num_workers)
 
+    kw = dict(extra_model_kwargs or {})
+    if honours_bf16 and args.bf16:
+        kw["dtype"] = torch.bfloat16
     model = model_ctor(s_ds.num_classes, cfg, args.net, args.class_agnostic,
-                       device=args.device, seed=cfg.RNG_SEED,
-                       **(extra_model_kwargs or {}))
+                       device=args.device, seed=cfg.RNG_SEED, **kw)
     load_pretrained_backbone(model.detector, args.net)
     for sub in extra_backbone_subtrees:
         # ATF's ancillary branch starts as a copy of the pretrained

@@ -18,6 +18,8 @@ when it is there, else from random weights seeded with ``cfg.RNG_SEED``.
 Checkpoints go to ``<save_dir>/<net>/<dataset>/faster_rcnn_<session>_
 <epoch>_<step>.pth``: ``faster_rcnn_test --load_name`` evaluates one, and
 ``pt_maf_train --teacher_ckpt`` takes one as its teacher.
+``--bf16`` is accepted and the model trains in float32: the JAX
+script builds its model without a ``dtype`` (``faster_rcnn_train.py``).
 """
 
 from __future__ import annotations

@@ -21,6 +21,8 @@ file is there: ``detector.backbone`` and ``detector.head``, then
 the step's losses go to ``record_loss.txt`` and its six branch distances
 to ``record_dist.txt`` in the output dir (``IDF_train.py:141-159``).
 Checkpoints are ``idf_<session>_<epoch>_<step>.pth``; ``--r`` resumes.
+``--bf16`` is accepted and the model trains in float32: the JAX
+script builds its model without a ``dtype`` (``IDF_train.py``).
 """
 
 from __future__ import annotations

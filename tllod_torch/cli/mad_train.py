@@ -18,6 +18,8 @@ domain 0 and seed ``RNG_SEED + 7``; each s1 batch carries the epoch as a
 float32 ``(B,)`` array, the weight :func:`tllod_torch.methods.mad.mad_loss`
 ramps on. Checkpoints are ``mad_<session>_<epoch>_<step>.pth``; ``--r``
 resumes from ``--loadname`` under the output dir when it is given.
+``--bf16`` is accepted and the model trains in float32: the JAX
+script builds its model without a ``dtype`` (``MAD_train.py``).
 """
 
 from __future__ import annotations

@@ -19,6 +19,8 @@ are fixed at 1. The loop and the checkpoints (``pt_maf_<session>_<epoch>_
 weights are device tensors that each CUDA-graph replay reads in place, so
 JAX's scan-invariant argument (``n_invariant``,
 ``methods/PT_MAF/PT_MAF_train.py:141-147``) needs no counterpart.
+``--bf16`` is accepted and the model trains in float32: the JAX script
+builds its model without a ``dtype`` (``PT_MAF_train.py:64``).
 """
 
 from __future__ import annotations
@@ -77,7 +79,8 @@ def main(argv=None) -> int:
                                   "high": args.high, "low": args.low},
         step_inputs=lambda model: (build_teacher(model, args.teacher_ckpt),),
         meta={"teacher_ckpt": (args.teacher_ckpt
-                               or "UNTRAINED (student init)")})
+                               or "UNTRAINED (student init)")},
+        honours_bf16=False)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,12 @@ from typing import Tuple
 import numpy as np
 
 
-def load_image_bgr(path: str) -> np.ndarray:
+def load_image_bgr(path) -> np.ndarray:
+    """The BGR image a roidb entry's ``image`` names: a file path, read
+    with ``cv2``, or an (H, W, 3) array already in memory, returned as it
+    is (a machine without ``cv2`` trains on such entries)."""
+    if isinstance(path, np.ndarray):
+        return path
     import cv2
 
     im = cv2.imread(path, cv2.IMREAD_COLOR)
@@ -40,14 +45,17 @@ def scaled_size(h: int, w: int, target_size: int) -> Tuple[int, int]:
 def prep_image(im_bgr: np.ndarray, pixel_means, target_size: int
                ) -> Tuple[np.ndarray, float]:
     """Mean-subtract + scale shortest side to ``target_size``
-    (reference ``prep_im_for_blob``). Returns (float32 image, scale)."""
-    import cv2
-
+    (reference ``prep_im_for_blob``). Returns (float32 image, scale). At
+    scale 1 the image is returned unresized, which is what ``cv2.resize``
+    gives there, and ``cv2`` is not imported."""
     im = im_bgr.astype(np.float32, copy=True)
     im -= np.asarray(pixel_means, np.float32).reshape(1, 1, 3)
     im_scale = float(target_size) / float(min(im.shape[:2]))
-    im = cv2.resize(im, None, None, fx=im_scale, fy=im_scale,
-                    interpolation=cv2.INTER_LINEAR)
+    if im_scale != 1.0:
+        import cv2
+
+        im = cv2.resize(im, None, None, fx=im_scale, fy=im_scale,
+                        interpolation=cv2.INTER_LINEAR)
     return im, im_scale
 
 

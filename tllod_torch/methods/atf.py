@@ -43,6 +43,7 @@ from tllod_torch.methods.da_modules import (ImageDA, InstanceDA,
                                             image_da_loss, init_da_heads)
 from tllod_torch.models.backbones import VGG16Features
 from tllod_torch.models.faster_rcnn import FasterRCNN, nhwc_features
+from tllod_torch.models.layers import set_compute_dtype
 from tllod_torch.ops.losses import binary_cross_entropy
 
 SUPERVISED_KEYS = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls",
@@ -54,18 +55,21 @@ class ATFModel(nn.Module):
     ``backbone_anc``, ``img_da3/4/5`` and ``ins_da`` follow the flax param
     subtrees; eval loads ``detector`` alone. Built on ``device`` (default
     ``cuda``); with ``seed`` every weight is drawn from generators seeded
-    with it, and ``backbone_anc`` copies the detector's backbone."""
+    with it, and ``backbone_anc`` copies the detector's backbone.
+    ``dtype`` is the compute type of every layer, the ancillary backbone's
+    and the heads' too (``atf.py:49-68``)."""
 
     def __init__(self, num_classes: int, cfg: Config, net: str = "vgg16",
                  class_agnostic: bool = False, grl_alpha: float = 0.1, *,
-                 device=None, seed: Optional[int] = None):
+                 device=None, seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if net not in ("vgg16", "vgg16_thin"):
             raise ValueError("ATF ships with the VGG16 backbone")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.detector = FasterRCNN(num_classes, cfg, net, class_agnostic,
-                                   device=self.device)
+                                   device=self.device, dtype=dtype)
         self.backbone_anc = VGG16Features(
             width=0.25 if net == "vgg16_thin" else 1.0,
             device=self.device).to(memory_format=torch.channels_last)
@@ -76,6 +80,7 @@ class ATFModel(nn.Module):
         self.img_da5 = ImageDA(c5, alpha=grl_alpha, device=self.device)
         self.ins_da = InstanceDA(self.detector.head_dim, alpha=grl_alpha,
                                  device=self.device)
+        set_compute_dtype(self, dtype)
         if seed is not None:
             self.init_weights(seed)
         self.train()

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tllod_torch.models.backbones import dropout
+from tllod_torch.models.layers import Conv2d, Linear
 from tllod_torch.ops.grl import grad_reverse
 from tllod_torch.ops.losses import binary_cross_entropy
 
@@ -31,9 +32,9 @@ class ImageDA(nn.Module):
                  alpha: float = 0.1, device=None):
         super().__init__()
         self.alpha = alpha
-        self.conv1 = nn.Conv2d(in_channels, hidden, 1, bias=False,
+        self.conv1 = Conv2d(in_channels, hidden, 1, bias=False,
                                device=device)
-        self.conv2 = nn.Conv2d(hidden, 2, 1, bias=False, device=device)
+        self.conv2 = Conv2d(hidden, 2, 1, bias=False, device=device)
 
     def forward(self, feat: torch.Tensor, grl_scale=1.0) -> torch.Tensor:
         x = grad_reverse(feat, self.alpha * grl_scale).permute(0, 3, 1, 2)
@@ -60,9 +61,9 @@ class InstanceDA(nn.Module):
                  device=None):
         super().__init__()
         self.alpha = alpha
-        self.dc_ip1 = nn.Linear(in_features, 1024, device=device)
-        self.dc_ip2 = nn.Linear(1024, 1024, device=device)
-        self.classifier = nn.Linear(1024, 1, device=device)
+        self.dc_ip1 = Linear(in_features, 1024, device=device)
+        self.dc_ip2 = Linear(1024, 1024, device=device)
+        self.classifier = Linear(1024, 1, device=device)
 
     def forward(self, feat: torch.Tensor, *, deterministic: bool = True,
                 rng=None) -> torch.Tensor:

@@ -30,26 +30,30 @@ from tllod_torch.methods.da_modules import (ImageDA, InstanceDA,
                                             instance_da_loss,
                                             source_target_pass)
 from tllod_torch.models.faster_rcnn import FasterRCNN
+from tllod_torch.models.layers import set_compute_dtype
 
 
 class DAFModel(nn.Module):
     """Detector + DAF heads. Submodules ``detector``, ``img_da`` and
     ``ins_da`` follow the flax param subtrees; eval loads ``detector``
     alone. Built on ``device`` (default ``cuda``); with ``seed`` every
-    weight is drawn from a generator seeded with it."""
+    weight is drawn from a generator seeded with it. ``dtype`` is the
+    compute type of every layer, the heads' too (``daf.py:52-60``)."""
 
     def __init__(self, num_classes: int, cfg: Config, net: str = "vgg16",
                  class_agnostic: bool = False, grl_alpha: float = 0.1, *,
-                 device=None, seed: Optional[int] = None):
+                 device=None, seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.detector = FasterRCNN(num_classes, cfg, net, class_agnostic,
-                                   device=self.device)
+                                   device=self.device, dtype=dtype)
         self.img_da = ImageDA(self.detector.dout_base_model, alpha=grl_alpha,
                               device=self.device)
         self.ins_da = InstanceDA(self.detector.head_dim, alpha=grl_alpha,
                                  device=self.device)
+        set_compute_dtype(self, dtype)
         if seed is not None:
             self.init_weights(seed)
         self.train()

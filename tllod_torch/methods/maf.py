@@ -29,7 +29,9 @@ from tllod_torch.methods.da_modules import (ImageDA, image_da_loss,
                                             init_da_heads,
                                             source_target_pass)
 from tllod_torch.models.faster_rcnn import FasterRCNN
-from tllod_torch.ops.grl import grad_reverse, weighted_grad_reverse
+from tllod_torch.models.layers import Conv2d, Linear, set_compute_dtype
+from tllod_torch.ops.grl import (grad_reverse, weak_scalar,
+                                 weighted_grad_reverse)
 from tllod_torch.ops.losses import softmax_cross_entropy
 
 
@@ -55,11 +57,11 @@ class ImageDADRM(nn.Module):
         super().__init__()
         self.alpha = alpha
         self.scale = scale
-        self.drm_conv = nn.Conv2d(in_channels, inner, 1, bias=False,
+        self.drm_conv = Conv2d(in_channels, inner, 1, bias=False,
                                   device=device)
-        self.conv1 = nn.Conv2d(inner * scale * scale, 512, 1, bias=False,
+        self.conv1 = Conv2d(inner * scale * scale, 512, 1, bias=False,
                                device=device)
-        self.conv2 = nn.Conv2d(512, 2, 1, bias=False, device=device)
+        self.conv2 = Conv2d(512, 2, 1, bias=False, device=device)
 
     def forward(self, feat: torch.Tensor, grl_scale=1.0) -> torch.Tensor:
         x = grad_reverse(feat, self.alpha * grl_scale).permute(0, 3, 1, 2)
@@ -81,9 +83,9 @@ class InstanceDAWeighted(nn.Module):
                  device=None):
         super().__init__()
         self.wgrl_alpha = wgrl_alpha
-        self.dc_ip1 = nn.Linear(in_features, 1024, device=device)
-        self.dc_ip2 = nn.Linear(1024, 1024, device=device)
-        self.classifier = nn.Linear(1024, 2, device=device)
+        self.dc_ip1 = Linear(in_features, 1024, device=device)
+        self.dc_ip2 = Linear(1024, 1024, device=device)
+        self.classifier = Linear(1024, 2, device=device)
 
     def _mlp(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.dc_ip1(x))
@@ -96,8 +98,8 @@ class InstanceDAWeighted(nn.Module):
             score = F.softmax(self._mlp(feat), dim=1)
         dom = domain.reshape(-1)[:1].long()
         weight = score.index_select(1, dom)                    # (R, 1)
-        return self._mlp(weighted_grad_reverse(feat,
-                                               self.wgrl_alpha * weight))
+        alpha = weak_scalar(self.wgrl_alpha, weight.dtype)     # as JAX's
+        return self._mlp(weighted_grad_reverse(feat, alpha * weight))
 
 
 def instance_domain_loss(ins_da: InstanceDAWeighted, fc7: torch.Tensor,
@@ -115,17 +117,19 @@ class MAFModel(nn.Module):
     ``img_da4``, ``img_da5`` and ``ins_da`` follow the flax param
     subtrees; eval loads ``detector`` alone. Built on ``device`` (default
     ``cuda``); with ``seed`` every weight is drawn from generators seeded
-    with it."""
+    with it. ``dtype`` is the compute type of every layer, the heads' too
+    (``maf.py:126-141``)."""
 
     def __init__(self, num_classes: int, cfg: Config, net: str = "vgg16",
                  class_agnostic: bool = False, grl_alpha: float = 0.1, *,
-                 device=None, seed: Optional[int] = None):
+                 device=None, seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.num_classes = num_classes
         self.detector = FasterRCNN(num_classes, cfg, net, class_agnostic,
-                                   device=self.device)
+                                   device=self.device, dtype=dtype)
         c3, c4, c5 = self.detector.backbone.tap_channels
         # (inner 64, s 4) on c3, (256, 2) on c4, plain on c5
         # (lib/MAF/faster_rcnn.py:41-44)
@@ -136,6 +140,7 @@ class MAFModel(nn.Module):
         self.img_da5 = ImageDA(c5, alpha=grl_alpha, device=self.device)
         self.ins_da = InstanceDAWeighted(
             self.detector.head_dim + num_classes, device=self.device)
+        set_compute_dtype(self, dtype)
         if seed is not None:
             self.init_weights(seed)
         self.train()

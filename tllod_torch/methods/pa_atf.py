@@ -58,6 +58,7 @@ from tllod_torch.methods.da_modules import (InstanceDA, features_pair,
                                             fused_box_head, init_da_heads)
 from tllod_torch.models.backbones import VGG16Features
 from tllod_torch.models.faster_rcnn import FasterRCNN, nhwc_features
+from tllod_torch.models.layers import Conv2d, Linear, set_compute_dtype
 from tllod_torch.ops.grl import grad_reverse
 from tllod_torch.ops.losses import binary_cross_entropy
 from tllod_torch.ops.roi_pool import roi_pool
@@ -83,13 +84,13 @@ class PartialImageDA(nn.Module):
     def __init__(self, channels: int, alpha: float = 0.1, device=None):
         super().__init__()
         self.alpha = alpha
-        self.mask_conv1 = nn.Conv2d(channels, channels, 5, stride=3,
+        self.mask_conv1 = Conv2d(channels, channels, 5, stride=3,
                                     device=device)
-        self.mask_conv2 = nn.Conv2d(channels, channels, 3, stride=2,
+        self.mask_conv2 = Conv2d(channels, channels, 3, stride=2,
                                     device=device)
-        self.conv1 = nn.Conv2d(channels, channels // 2, 1, bias=False,
+        self.conv1 = Conv2d(channels, channels // 2, 1, bias=False,
                                device=device)
-        self.conv2 = nn.Conv2d(channels // 2, 1, 1, bias=False,
+        self.conv2 = Conv2d(channels // 2, 1, 1, bias=False,
                                device=device)
 
     def forward(self, feat: torch.Tensor):
@@ -113,11 +114,11 @@ class CLUBHead(nn.Module):
     def __init__(self, channels: int, alpha: float = 0.1, device=None):
         super().__init__()
         self.alpha = alpha
-        self.conv1 = nn.Conv2d(2 * channels, channels, 3, stride=2,
+        self.conv1 = Conv2d(2 * channels, channels, 3, stride=2,
                                device=device)
-        self.conv2 = nn.Conv2d(channels, 128, 1, device=device)
+        self.conv2 = Conv2d(channels, 128, 1, device=device)
         side = (CLUB_POOL - 3) // 2 + 1
-        self.fc = nn.Linear(side * side * 128, 2, device=device)
+        self.fc = Linear(side * side * 128, 2, device=device)
 
     def forward(self, xa: torch.Tensor, xs: torch.Tensor,
                 valid: torch.Tensor, rng) -> torch.Tensor:
@@ -148,12 +149,16 @@ class PAATFModel(nn.Module):
     ``club3/4/5`` follow the flax param subtrees; eval loads ``detector``
     alone. Built on ``device`` (default ``cuda``); with ``seed`` every
     weight is drawn from generators seeded with it, and ``backbone_anc``
-    copies the detector's backbone."""
+    copies the detector's backbone. ``dtype`` is the compute type of the
+    detector and ``backbone_anc`` only: JAX builds the image, instance and
+    CLUB heads without it (``pa_atf.py:161-166``), so they compute in
+    float32 on the bfloat16 maps, pooled features and fc7 they are given."""
 
     def __init__(self, num_classes: int, cfg: Config, net: str = "vgg16",
                  class_agnostic: bool = False, grl_alpha: float = 0.1, *,
                  club_branch: str = "ancillary", device=None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if net not in ("vgg16", "vgg16_thin"):
             raise ValueError("PA-ATF ships with the VGG16 backbone")
@@ -164,11 +169,12 @@ class PAATFModel(nn.Module):
         self.cfg = cfg
         self.club_branch = club_branch
         self.detector = FasterRCNN(num_classes, cfg, net, class_agnostic,
-                                   device=self.device)
+                                   device=self.device, dtype=dtype)
         self.backbone_anc = VGG16Features(
             width=0.25 if net == "vgg16_thin" else 1.0,
             device=self.device).to(memory_format=torch.channels_last)
         self.backbone_anc.requires_grad_(True)
+        set_compute_dtype(self.backbone_anc, dtype)
         taps = self.backbone_anc.tap_channels
         # the heads' conv weights in channels_last, the layout the taps
         # arrive in, so cuDNN converts no weight on a call

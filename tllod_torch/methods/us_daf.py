@@ -40,6 +40,7 @@ from tllod_torch.methods.da_modules import (features_pair, fused_box_head,
                                             init_da_heads)
 from tllod_torch.models.backbones import dropout
 from tllod_torch.models.faster_rcnn import FasterRCNN
+from tllod_torch.models.layers import Conv2d, Linear, set_compute_dtype
 from tllod_torch.ops.grl import grad_reverse
 
 
@@ -57,9 +58,9 @@ class ImageDASigmoid(nn.Module):
                  device=None):
         super().__init__()
         self.alpha = alpha
-        self.conv1 = nn.Conv2d(in_channels, 512, 1, bias=False,
+        self.conv1 = Conv2d(in_channels, 512, 1, bias=False,
                                device=device)
-        self.conv2 = nn.Conv2d(512, 1, 1, bias=False, device=device)
+        self.conv2 = Conv2d(512, 1, 1, bias=False, device=device)
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         x = grad_reverse(feat, self.alpha).permute(0, 3, 1, 2)
@@ -75,9 +76,9 @@ class InstanceDAScale(nn.Module):
                  device=None):
         super().__init__()
         self.alpha = alpha
-        self.dc_ip1 = nn.Linear(in_features, 1024, device=device)
-        self.dc_ip2 = nn.Linear(1024, 1024, device=device)
-        self.classifier = nn.Linear(1024, 4, device=device)
+        self.dc_ip1 = Linear(in_features, 1024, device=device)
+        self.dc_ip2 = Linear(1024, 1024, device=device)
+        self.classifier = Linear(1024, 4, device=device)
 
     def forward(self, feat: torch.Tensor, *, deterministic: bool = True,
                 rng=None) -> torch.Tensor:
@@ -107,9 +108,10 @@ def bce_margin_loss(probs: torch.Tensor, labels: torch.Tensor
     column (0) counts only where its own BCE exceeds 0.5, the three scale
     columns always; the mean over all R×4 entries. Probabilities are
     clipped to [1e-7, 1 − 1e-7], then offset by 1e-10 inside the logs, as
-    JAX does."""
+    JAX does, in their own type (at bfloat16 the upper bound rounds to 1;
+    the float32 labels promote the products)."""
     eps = 1e-10
-    p = _clip(probs.float(), 1e-7, 1.0 - 1e-7)
+    p = _clip(probs, 1e-7, 1.0 - 1e-7)
     bce = -(labels * torch.log(p + eps)
             + (1.0 - labels) * torch.log(1.0 - p + eps))
     domain_w = (bce[:, :1] > 0.5).float()
@@ -120,8 +122,8 @@ def bce_margin_loss(probs: torch.Tensor, labels: torch.Tensor
 def image_sigmoid_loss(prob: torch.Tensor, domain_value: float
                        ) -> torch.Tensor:
     """Mean BCE of a sigmoid map to a constant domain label, clipped at
-    1e-7 (``us_daf.py:141-146``)."""
-    p = _clip(prob.float(), 1e-7, 1.0 - 1e-7)
+    1e-7 (``us_daf.py:141-146``), in the map's type as in JAX."""
+    p = _clip(prob, 1e-7, 1.0 - 1e-7)
     return -(torch.log(p) if domain_value > 0.5
              else torch.log(1.0 - p)).mean()
 
@@ -140,20 +142,23 @@ class USDAFModel(nn.Module):
     """Detector + US-DAF heads. Submodules ``detector``, ``img_da`` and
     ``ins_da`` follow the flax param subtrees; eval loads ``detector``
     alone. Built on ``device`` (default ``cuda``); with ``seed`` every
-    weight is drawn from a generator seeded with it."""
+    weight is drawn from a generator seeded with it. ``dtype`` is the
+    compute type of every layer, the heads' too (``us_daf.py:131-138``)."""
 
     def __init__(self, num_classes: int, cfg: Config, net: str = "res101",
                  class_agnostic: bool = False, grl_alpha: float = 0.1, *,
-                 device=None, seed: Optional[int] = None):
+                 device=None, seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.detector = FasterRCNN(num_classes, cfg, net, class_agnostic,
-                                   device=self.device)
+                                   device=self.device, dtype=dtype)
         self.img_da = ImageDASigmoid(self.detector.dout_base_model,
                                      alpha=grl_alpha, device=self.device)
         self.ins_da = InstanceDAScale(self.detector.head_dim, alpha=grl_alpha,
                                       device=self.device)
+        set_compute_dtype(self, dtype)
         if seed is not None:
             self.init_weights(seed)
         self.train()

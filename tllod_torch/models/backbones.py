@@ -54,6 +54,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tllod_torch.models.layers import Conv2d, Linear
+
 # torchvision VGG16 conv plan: (out_channels, convs per block)
 _VGG_BLOCKS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
 
@@ -71,7 +73,7 @@ class VGG16Features(nn.Module):
             ch = max(8, int(ch * width))
             widths.append(ch)
             for ci in range(n_convs):
-                conv = nn.Conv2d(in_ch, ch, 3, padding=1, device=device)
+                conv = Conv2d(in_ch, ch, 3, padding=1, device=device)
                 conv.requires_grad_(bi >= frozen_blocks)
                 self.add_module(f"conv{bi + 1}_{ci + 1}", conv)
                 in_ch = ch
@@ -117,8 +119,8 @@ class VGG16Head(nn.Module):
 
     def __init__(self, in_features: int, dim: int = 4096, device=None):
         super().__init__()
-        self.fc6 = nn.Linear(in_features, dim, device=device)
-        self.fc7 = nn.Linear(dim, dim, device=device)
+        self.fc6 = Linear(in_features, dim, device=device)
+        self.fc7 = Linear(dim, dim, device=device)
 
     def forward(self, pooled: torch.Tensor, *, deterministic: bool = True,
                 rng=None) -> torch.Tensor:
@@ -137,7 +139,9 @@ class FrozenBN(nn.Module):
     """BatchNorm frozen to an affine map, over dim 1 of an NCHW tensor
     (``backbones.py:97-122``). ``scale``, ``bias``, ``mean`` and ``var``
     (gamma, beta and the running statistics) are buffers, at (1, 0, 0, 1)
-    until weights are loaded. The expression is JAX's, op for op."""
+    until weights are loaded. The expression is JAX's, op for op: at
+    bfloat16 the input is promoted by the float32 scale and shift, and the
+    float32 result rounded back once (``backbones.py:120-121``)."""
 
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -150,7 +154,7 @@ class FrozenBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.scale * torch.rsqrt(self.var + self.eps)
         shift = self.bias - self.mean * scale
-        return x * scale[:, None, None] + shift[:, None, None]
+        return (x * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 
 class Bottleneck(nn.Module):
@@ -163,14 +167,14 @@ class Bottleneck(nn.Module):
                  downsample: bool = False, device=None):
         super().__init__()
         kw = dict(bias=False, device=device)
-        self.conv1 = nn.Conv2d(in_ch, planes, 1, **kw)
+        self.conv1 = Conv2d(in_ch, planes, 1, **kw)
         self.bn1 = FrozenBN(planes, device=device)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, **kw)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, **kw)
         self.bn2 = FrozenBN(planes, device=device)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, **kw)
+        self.conv3 = Conv2d(planes, planes * 4, 1, **kw)
         self.bn3 = FrozenBN(planes * 4, device=device)
         if downsample:
-            self.downsample_conv = nn.Conv2d(in_ch, planes * 4, 1, stride,
+            self.downsample_conv = Conv2d(in_ch, planes * 4, 1, stride,
                                              **kw)
             self.downsample_bn = FrozenBN(planes * 4, device=device)
         self.downsample = downsample
@@ -210,7 +214,7 @@ class ResNetFeatures(nn.Module):
     def __init__(self, depth: int = 101, fixed_blocks: int = 1, device=None):
         super().__init__()
         self.fixed_blocks = fixed_blocks
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False, device=device)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, device=device)
         self.bn1 = FrozenBN(64, device=device)
         self.conv1.requires_grad_(False)
         ch = 64

@@ -35,6 +35,7 @@ from torch import nn
 from tllod_torch.config import Config
 from tllod_torch.device import resolve_device
 from tllod_torch.models.backbones import Bottleneck, backbone_for
+from tllod_torch.models.layers import Linear, set_compute_dtype
 from tllod_torch.models.rpn import (RoiSamples, RPNHead, anchor_target,
                                     proposal_layer, proposal_target,
                                     rpn_probs)
@@ -63,12 +64,18 @@ class FasterRCNN(nn.Module):
     Built on ``device`` (default ``cuda``, raising when there is no card);
     with ``seed`` the weights are drawn from a ``torch.Generator`` seeded
     with it, else left at PyTorch's default init. The module starts in eval
-    mode.
+    mode. ``dtype`` is the compute type of every convolution and fully
+    connected layer (:mod:`tllod_torch.models.layers`; JAX's ``dtype``): at
+    bfloat16 the maps, the pooled features and fc7 are bfloat16, and the
+    RPN's scores and deltas and the box head's logits and deltas return to
+    float32 before the decode and the losses (``faster_rcnn.py:96-97,
+    172-173``).
     """
 
     def __init__(self, num_classes: int, cfg: Config, net: str = "vgg16",
                  class_agnostic: bool = False, *, device=None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.device = resolve_device(device)
         self.num_classes = num_classes
@@ -86,13 +93,15 @@ class FasterRCNN(nn.Module):
         self.rpn = RPNHead(feat_ch, self.num_anchors,
                            device=self.device).to(
                                memory_format=torch.channels_last)
-        self.cls_score = nn.Linear(head_dim, num_classes, device=self.device)
+        self.cls_score = Linear(head_dim, num_classes, device=self.device)
         out_dim = 4 if class_agnostic else 4 * num_classes
-        self.bbox_pred = nn.Linear(head_dim, out_dim, device=self.device)
+        self.bbox_pred = Linear(head_dim, out_dim, device=self.device)
         self._base_anchors = generate_anchors(
             base_size=cfg.FEAT_STRIDE[0], ratios=cfg.ANCHOR_RATIOS,
             scales=cfg.ANCHOR_SCALES)
         self._anchors: Dict[tuple, torch.Tensor] = {}
+        self.compute_dtype = dtype
+        set_compute_dtype(self, dtype)
         if seed is not None:
             self.init_weights(seed)
         self.eval()

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tllod_torch.config import Config
+from tllod_torch.models.layers import Conv2d
 from tllod_torch.ops.boxes import (bbox_overlaps, bbox_transform,
                                    bbox_transform_inv, clip_boxes)
 from tllod_torch.ops.nms import nms_fixed_batched
@@ -53,9 +54,9 @@ class RPNHead(nn.Module):
 
     def __init__(self, in_channels: int, num_anchors: int, device=None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, 512, 3, padding=1, device=device)
-        self.cls_score = nn.Conv2d(512, 2 * num_anchors, 1, device=device)
-        self.bbox_pred = nn.Conv2d(512, 4 * num_anchors, 1, device=device)
+        self.conv = Conv2d(in_channels, 512, 3, padding=1, device=device)
+        self.cls_score = Conv2d(512, 2 * num_anchors, 1, device=device)
+        self.bbox_pred = Conv2d(512, 4 * num_anchors, 1, device=device)
 
     def forward(self, base_feat: torch.Tensor):
         x = F.relu(self.conv(base_feat))

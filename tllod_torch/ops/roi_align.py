@@ -106,8 +106,10 @@ def roi_align(feats: torch.Tensor, rois: torch.Tensor, *, out_size: int,
 def roi_align_avg_plain(feats: torch.Tensor, rois: torch.Tensor, *,
                         out_size: int, spatial_scale: float) -> torch.Tensor:
     """Plain RoIAlignAvg: align at (P+1)², then the 2×2 stride-1 mean, in
-    float32; the result is stored in ``feats``' type."""
-    a = roi_align(feats, rois, out_size=out_size + 1,
+    float32; the result is stored in ``feats``' type. A bfloat16 map is
+    read as float32 (exactly), so autograd sums its map gradient in float32
+    and rounds it once, as the backward kernel does."""
+    a = roi_align(feats.float(), rois, out_size=out_size + 1,
                   spatial_scale=spatial_scale)
     out = (a[:, :-1, :-1, :] + a[:, :-1, 1:, :]
            + a[:, 1:, :-1, :] + a[:, 1:, 1:, :]) * 0.25

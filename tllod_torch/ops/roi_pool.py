@@ -25,15 +25,19 @@ batch loop does (``roi_pool.py:73-81``: no image selects it, so image 0's
 value stays); RoIAlign gives zeros there instead.
 
 For CUDA tensors :func:`roi_pool` is a ``torch.autograd.Function`` over the
-kernels of ``csrc/roi_pool.cu`` (float32), a block per RoI bin row and
-channel chunk (:func:`lanes`), with 16-byte loads when C % 4 == 0 and the
-data is 16-byte aligned (:func:`vector_width`). The forward writes (R, P,
-P, C), which PA-ATF's CLUB heads read as the channels-last NCHW view with
-no copy. The backward is one call of two device passes: the map gradient
-zeroed, then each bin row's share added into the pixels that hold its
-column maxima with atomics (the sum order over overlapping bins varies by
-run). The RoIs get no gradient. CPU tensors run :func:`roi_pool_plain`,
-which autograd differentiates.
+kernels of ``csrc/roi_pool.cu`` (float32 and bfloat16), a block per RoI bin
+row and channel chunk (:func:`lanes`), with 16-byte loads when C is a
+multiple of 4 (float32) or 8 (bfloat16) and the data is 16-byte aligned
+(:func:`vector_width`). The forward writes (R, P, P, C) in the map's type,
+which PA-ATF's CLUB heads read as the channels-last NCHW view with no copy.
+The backward is one call of two device passes: the map gradient zeroed,
+then each bin row's share added into the pixels that hold its column
+maxima with atomics (the sum order over overlapping bins varies by run);
+at bfloat16 the sums go into a float32 scratch map and a third pass rounds
+it once into the bfloat16 map gradient. A bfloat16 map takes the JAX
+package's bfloat16 bin membership (:func:`bf16_member_edges`). The RoIs get
+no gradient. CPU tensors run :func:`roi_pool_plain`, which autograd
+differentiates.
 
 Layouts are the JAX package's: ``feats`` (B, H, W, C), the NHWC view of a
 ``channels_last`` map; ``rois`` (R, 5) in input-image coordinates; the
@@ -48,24 +52,29 @@ import torch
 
 from tllod_torch.ops import _kernels
 
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
 
 def vector_width(c: int, *tensors: torch.Tensor) -> int:
-    """4 (16-byte loads of 4 channels) when C % 4 == 0 and every tensor's
-    data starts on a 16-byte boundary, else 1."""
-    if c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
-        return 4
+    """The channels of a 16-byte load of the first tensor's type, 4
+    (float32) or 8 (bfloat16), when C is a multiple of it and every
+    tensor's data starts on a 16-byte boundary, else 1."""
+    wide = 16 // tensors[0].element_size()
+    if c % wide == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return wide
     return 1
 
 
 def lanes(c: int, p: int, vec: int, backward: bool = False) -> int:
-    """Lanes of a kernel block's channel chunk, each 4 channels of 16-byte
-    loads (``vec`` 4) or 1: 32 (128 channels a block) for at least 512
-    channels and P <= 16; else, with 16-byte loads, 16 for the forward (P
-    <= 32) and 8 for the backward; else 8. Wide chunks cut a deep map's
-    blocks; narrow ones give a wide RoI's columns more of the block's 256
-    threads (the fastest of the three at each of PA-ATF's taps on an
-    H100)."""
-    if vec != 4:
+    """Lanes of a kernel block's channel chunk, each ``vec`` channels of
+    16-byte loads (4 float32 or 8 bfloat16) or 1: 32 (128 float32 channels
+    a block) for at least 512 channels and P <= 16; else, with 16-byte
+    loads, 16 for the forward (P <= 32) and 8 for the backward; else 8.
+    Wide chunks cut a deep map's blocks; narrow ones give a wide RoI's
+    columns more of the block's 256 threads (the fastest of the three at
+    each of PA-ATF's float32 taps on an H100; bfloat16 takes the same
+    rule)."""
+    if vec == 1:
         return 8
     if c >= 512 and p <= 16:
         return 32
@@ -83,6 +92,19 @@ def _bin_ranges(lo: torch.Tensor, extent: torch.Tensor, p: int, limit: int):
     start = torch.div(i * ext_i, p, rounding_mode="floor") + lo_i
     end = -torch.div(-(i + 1) * ext_i, p, rounding_mode="floor") + lo_i
     return start.clamp(0, limit), end.clamp(0, limit)
+
+
+def bf16_member_edges(edges: torch.Tensor, limit: int) -> torch.Tensor:
+    """Bin edges of a bfloat16 map as the JAX package tests membership:
+    against the coordinates ``jnp.arange(size, dtype=bfloat16)``
+    (``roi_pool.py:64-69``), rounded to nearest even above 256 (column 257
+    reads 256, 259 reads 260). Cell x is in bin [s, e) iff s <= rb(x) < e;
+    rb is monotone, so a bin's cells are still a run, [first x with
+    rb(x) >= s, first x with rb(x) >= e). ``edges`` (R, P) int64 in
+    [0, limit] → the same for the cells, clipped to ``limit``."""
+    grid = torch.arange(limit + 1, dtype=torch.float32,
+                        device=edges.device).to(torch.bfloat16).float()
+    return torch.searchsorted(grid, edges.float()).clamp(max=limit)
 
 
 def roi_bins(rois: torch.Tensor, p: int, spatial_scale: float, h: int,
@@ -109,6 +131,13 @@ def roi_pool_plain(feats: torch.Tensor, rois: torch.Tensor, *,
     over its rows (the column maxima) and per bin the ``amax`` of those over
     its columns. The bin edges are read on the host.
 
+    A bfloat16 map takes the JAX package's bfloat16 membership
+    (:func:`bf16_member_edges`): a bin that is not empty by its edges but
+    holds no cell gives JAX's fill, -1e30 in bfloat16, and no gradient. The
+    map is read as float32 (exactly), so the max is exact and autograd sums
+    the map gradient in float32 and rounds it once, as the backward kernel
+    does.
+
     Memory is bounded by the RoI, never (R, P, H, W, C): the forward keeps
     the output and each bin row's column maxima (P · w_roi · C per RoI, at
     most 107 MB for 50 RoIs spanning the whole c3 map 1×150×300×256, a few
@@ -116,25 +145,34 @@ def roi_pool_plain(feats: torch.Tensor, rois: torch.Tensor, *,
     float32 buffers (46 MB each at c3), one per RoI in turn."""
     b, h, w, c = feats.shape
     p = out_size
-    bins = [t.tolist() for t in roi_bins(rois, p, spatial_scale, h, w, b)]
-    zero = feats.new_zeros((c,))
+    bi, hs, he, ws, we = roi_bins(rois, p, spatial_scale, h, w, b)
+    empty_h, empty_w = (he <= hs).tolist(), (we <= ws).tolist()
+    if feats.dtype == torch.bfloat16:
+        hs, he = bf16_member_edges(hs, h), bf16_member_edges(he, h)
+        ws, we = bf16_member_edges(ws, w), bf16_member_edges(we, w)
+    bins = [t.tolist() for t in (bi, hs, he, ws, we)]
+    f = feats.float()
+    zero = f.new_zeros((c,))
+    fill = torch.full((c,), -1e30, dtype=feats.dtype,
+                      device=feats.device).float()
     out = []
-    for bi, hs, he, ws, we in zip(*bins):
-        y0, y1, x0, x1 = min(hs), max(he), min(ws), max(we)
-        crop = feats[bi, y0:y1, x0:x1]                   # a view
+    for r, (bi, hs, he, ws, we) in enumerate(zip(*bins)):
+        y0, y1 = min(hs), max(max(he), min(hs))
+        x0, x1 = min(ws), max(max(we), min(ws))
+        crop = f[bi, y0:y1, x0:x1]                       # a view
         rows = []
         for i in range(p):
-            if he[i] <= hs[i]:
-                rows.append(torch.stack([zero] * p))
-                continue
-            colmax = crop[hs[i] - y0:he[i] - y0].amax(dim=0)   # (w, C)
+            colmax = (crop[hs[i] - y0:he[i] - y0].amax(dim=0)  # (w, C)
+                      if he[i] > hs[i] else None)
             rows.append(torch.stack([
+                zero if empty_h[r][i] or empty_w[r][j] else
+                fill if colmax is None or we[j] <= ws[j] else
                 colmax[ws[j] - x0:we[j] - x0].amax(dim=0)
-                if we[j] > ws[j] else zero for j in range(p)]))
+                for j in range(p)]))
         out.append(torch.stack(rows))
     if not out:
         return feats.new_zeros((0, p, p, c))
-    return torch.stack(out)
+    return torch.stack(out).to(feats.dtype)
 
 
 def roi_pool(feats: torch.Tensor, rois: torch.Tensor, *, out_size: int,
@@ -172,9 +210,9 @@ def _check(what, feats, rois, out_size):
     if feats.dim() != 4 or rois.dim() != 2 or rois.shape[1] != 5:
         raise ValueError(f"{what}: feats (B,H,W,C) and rois (R,5) expected, "
                          f"got {tuple(feats.shape)} and {tuple(rois.shape)}")
-    if feats.dtype != torch.float32 or rois.dtype != torch.float32:
-        raise TypeError(f"{what}: float32 feats and rois only, got "
-                        f"{feats.dtype} and {rois.dtype}")
+    if feats.dtype not in _DTYPE_CODE or rois.dtype != torch.float32:
+        raise TypeError(f"{what}: float32 or bfloat16 feats and float32 "
+                        f"rois only, got {feats.dtype} and {rois.dtype}")
     if not (feats.is_cuda and rois.device == feats.device):
         raise ValueError(f"{what}: CUDA tensors on one device only; CPU "
                          f"tensors take the plain version")
@@ -188,17 +226,18 @@ def _check(what, feats, rois, out_size):
 
 def roi_pool_forward(feats: torch.Tensor, rois: torch.Tensor, *,
                      out_size: int, spatial_scale: float) -> torch.Tensor:
-    """The forward kernel → (R, P, P, C) float32."""
+    """The forward kernel → (R, P, P, C) in the map's type."""
     _check("roi_pool", feats, rois, out_size)
     b, h, w, c = feats.shape
     r = rois.shape[0]
-    out = torch.empty((r, out_size, out_size, c), dtype=torch.float32,
+    out = torch.empty((r, out_size, out_size, c), dtype=feats.dtype,
                       device=feats.device)
     vec = vector_width(c, feats)
     lib = _lib()
     status = lib.tllod_roi_pool_forward(
-        feats.data_ptr(), rois.data_ptr(), out.data_ptr(), b, h, w, c, r,
-        out_size, float(spatial_scale), vec, lanes(c, out_size, vec),
+        feats.data_ptr(), rois.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[feats.dtype], b, h, w, c, r, out_size,
+        float(spatial_scale), vec, lanes(c, out_size, vec),
         torch.cuda.current_stream(feats.device).cuda_stream)
     _kernels.check(lib, status, "roi_pool")
     _kernels.launches["roi_pool"] += 1
@@ -209,32 +248,36 @@ def roi_pool_backward(grad_out: torch.Tensor, feats: torch.Tensor,
                       rois: torch.Tensor, *, out_size: int,
                       spatial_scale: float) -> torch.Tensor:
     """The backward: (R, P, P, C) output gradient and the forward's map →
-    float32 (B, H, W, C) map gradient, zeroed and accumulated with atomics
-    in one C call (one launch count for its two device passes; the sum
-    order over overlapping bins varies by run). A gradient that is not
-    (R, P, P, C)-contiguous is copied first, counted in
-    ``_kernels.launches["roi_pool_grad_copy"]``."""
+    (B, H, W, C) map gradient in the map's type, zeroed and accumulated
+    with float32 atomics in one C call (one launch count for its device
+    passes; the sum order over overlapping bins varies by run; at bfloat16
+    the sums go into a float32 scratch map, rounded once into the result).
+    A gradient that is not (R, P, P, C)-contiguous is copied first, counted
+    in ``_kernels.launches["roi_pool_grad_copy"]``."""
     _check("roi_pool_backward", feats, rois, out_size)
     b, h, w, c = feats.shape
     r = rois.shape[0]
     if grad_out.shape != (r, out_size, out_size, c) or \
-            grad_out.dtype != torch.float32 or \
+            grad_out.dtype != feats.dtype or \
             grad_out.device != feats.device:
-        raise ValueError(f"roi_pool_backward: float32 grad_out of shape "
-                         f"{(r, out_size, out_size, c)} on {feats.device} "
-                         f"expected, got {grad_out.dtype} "
+        raise ValueError(f"roi_pool_backward: {feats.dtype} grad_out of "
+                         f"shape {(r, out_size, out_size, c)} on "
+                         f"{feats.device} expected, got {grad_out.dtype} "
                          f"{tuple(grad_out.shape)} on {grad_out.device}")
     if not grad_out.is_contiguous():
         _kernels.launches["roi_pool_grad_copy"] += 1
         grad_out = grad_out.contiguous()
-    grad = torch.empty((b, h, w, c), dtype=torch.float32,
-                       device=feats.device)
+    grad = torch.empty((b, h, w, c), dtype=feats.dtype, device=feats.device)
+    scratch = (torch.empty((b, h, w, c), dtype=torch.float32,
+                           device=feats.device)
+               if feats.dtype == torch.bfloat16 else None)
     vec = vector_width(c, feats, grad_out, grad)
     lib = _lib()
     status = lib.tllod_roi_pool_backward(
         grad_out.data_ptr(), feats.data_ptr(), rois.data_ptr(),
-        grad.data_ptr(), b, h, w, c, r, out_size, float(spatial_scale), vec,
-        lanes(c, out_size, vec, backward=True),
+        grad.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        _DTYPE_CODE[feats.dtype], b, h, w, c, r, out_size,
+        float(spatial_scale), vec, lanes(c, out_size, vec, backward=True),
         torch.cuda.current_stream(feats.device).cuda_stream)
     _kernels.check(lib, status, "roi_pool_backward")
     _kernels.launches["roi_pool_backward"] += 1
@@ -246,9 +289,9 @@ def _lib():
     if lib.tllod_roi_pool_forward.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tllod_roi_pool_forward.argtypes = [vp, vp, vp, i, i, i, i, i, i,
-                                               f, i, i, vp]
-        lib.tllod_roi_pool_backward.argtypes = [vp, vp, vp, vp, i, i, i, i,
-                                                i, i, f, i, i, vp]
+                                               i, f, i, i, vp]
+        lib.tllod_roi_pool_backward.argtypes = [vp, vp, vp, vp, vp, i, i, i,
+                                                i, i, i, i, f, i, i, vp]
         for fn in (lib.tllod_roi_pool_forward, lib.tllod_roi_pool_backward):
             fn.restype = ctypes.c_int
     return lib

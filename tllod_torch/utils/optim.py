@@ -1,6 +1,6 @@
-"""The reference SGD (``tllod_tpu/utils/optim.py:36-202``; reference
-``methods/DAF/DAF_train.py:311-325``, ``lib/model/utils/net_utils.py:
-38-49``).
+"""The reference optimizers (``tllod_tpu/utils/optim.py:36-202``;
+reference ``methods/DAF/DAF_train.py:311-325``, ``lib/model/utils/
+net_utils.py:38-49``).
 
 :class:`SGD` applies, in the order of the JAX package's optax chain
 (``make_sgd``, ``optim.py:74-112``):
@@ -8,26 +8,48 @@
     mask frozen → clip by global norm → + wd·w (trainable, non-bias)
     → momentum (v ← g + μ·v) → × −lr → × 2 on biases → mask frozen
 
-over two param groups: frozen parameters are in neither, biases take twice
-the learning rate and no decay. The clip is optax's
-``clip_by_global_norm``: ``(g / ‖g‖) · max`` unless ``‖g‖ < max``, with no
-epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6). The momentum starts
-at 0, as optax's trace does, so the first step sets it to g. The update is
-``torch._foreach_*`` ops that read the rate from a device tensor: the
-learning rate is a host-side function of the update count, filled into that
-tensor before each update, so no step waits for the card and a CUDA graph
-can replay the update (:meth:`SGD.update`) with each replay's own rate.
-``p − (lr·v)`` rounds the product and then the sum, as optax's scale and
-``apply_updates`` do. ``--o adam`` and ``--bf16_momentum`` are not ported
-yet and raise.
+and :class:`Adam` (``--o adam``, ``make_adam``, ``optim.py:115-146``) the
+same chain with optax's ``scale_by_adam`` in the momentum's place:
+
+    m ← (1 − b1)·g + b1·m,  n ← (1 − b2)·g² + b2·n,
+    u = (m / (1 − b1^t)) / (sqrt(n / (1 − b2^t)) + eps)
+
+with t the update's 1-based number, eps outside the root and the decay
+folded into g before the moments (``torch.optim.Adam`` divides by its bias
+corrections elsewhere and knows neither the bias group nor the clip).
+
+Both run over two param groups: frozen parameters are in neither, biases
+take twice the learning rate and no decay. A trainable parameter with no
+gradient (ATF's and PA-ATF's ``backbone_anc`` conv1-2, IDF's
+``backbone_b`` conv1-2: JAX's mask keeps them) steps on a zero gradient,
+as optax does: decay and momentum move it under SGD, and under Adam the
+moments of its pure decay gradient move it by about lr a step. The clip is
+optax's ``clip_by_global_norm``: ``(g / ‖g‖) · max`` unless ``‖g‖ < max``,
+with no epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6). The
+moments start at 0, as optax's do. The update is ``torch._foreach_*`` ops
+that read the rate (and Adam's bias corrections) from device tensors: they
+are host-side functions of the update count, filled in before each update,
+so no step waits for the card and a CUDA graph can replay the update
+(``update``) with each replay's own values. ``p − (lr·v)`` rounds the
+product and then the sum, as optax's scale and ``apply_updates`` do.
+
+``--bf16_momentum`` (``make_sgd(momentum_dtype=bfloat16)``) stores SGD's
+trace in bfloat16, as optax 0.2.6's ``trace`` does: v = g + μ·t with
+μ·t a bfloat16 product (μ itself rounded to bfloat16, 0.8984375, as JAX
+takes a Python scalar in the type of the array it meets) promoted by the
+float32 g, the step takes that unrounded v, and v is stored rounded to
+bfloat16.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+
+from tllod_torch.ops.grl import weak_scalar
 
 
 def is_bias(name: str) -> bool:
@@ -70,24 +92,25 @@ def epoch_decay_schedule(base_lr: float, steps_per_epoch: int,
     return schedule
 
 
-class SGD(torch.optim.Optimizer):
-    """SGD over the trainable named parameters of a module in two groups,
-    weights (lr, decay) and biases (``2·lr`` under ``double_bias``, no
-    decay unless ``bias_decay``), with optax's clip in front and the
-    learning rate set from the update count ``count``.
+class _Chain(torch.optim.Optimizer):
+    """The steps the optax chains share: two param groups of the trainable
+    named parameters, weights (lr, decay) and biases (``2·lr`` under
+    ``double_bias``, no decay unless ``bias_decay``), optax's clip in front,
+    and the learning rate set from the update count ``count``.
 
     :meth:`step` is :meth:`fill_rate`, :meth:`update` and ``count += 1``.
     :meth:`update` changes no host value and allocates only where a
     parameter has no gradient, so a CUDA graph can capture it; the graph's
     runner calls :meth:`fill_rate` before each replay and advances
-    ``count`` after it. ``state_dict``/``load_state_dict`` carry the
-    momentum buffers by parameter name, and the count."""
+    ``count`` after it. ``state_dict``/``load_state_dict`` carry each
+    per-parameter state in ``STATE`` by parameter name, and the count."""
+
+    STATE: Tuple[str, ...] = ()
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]],
                  learning_rate: Callable[[int], float], *,
-                 momentum: float = 0.9, weight_decay: float = 5e-4,
-                 double_bias: bool = True, bias_decay: bool = False,
-                 clip_norm: Optional[float] = None,
+                 weight_decay: float = 5e-4, double_bias: bool = True,
+                 bias_decay: bool = False, clip_norm: Optional[float] = None,
                  trainable: Callable[[str], bool] = default_trainable):
         named = [(n, p) for n, p in named_params
                  if trainable(n) and p.requires_grad]
@@ -102,11 +125,8 @@ class SGD(torch.optim.Optimizer):
         super().__init__([g for g in groups if g["params"]],
                          {"lr": learning_rate(0)})
         self.learning_rate = learning_rate
-        self.momentum = momentum
         self.clip_norm = clip_norm
         self.count = 0
-        for p in self.named_params().values():
-            self.state[p]["momentum_buffer"] = torch.zeros_like(p)
         # each group's −lr·scale, on its parameters' device
         self.rates = [torch.zeros((), device=g["params"][0].device)
                       for g in self.param_groups]
@@ -124,10 +144,9 @@ class SGD(torch.optim.Optimizer):
             g["lr"] = lr * g["lr_scale"]
             rate.fill_(-g["lr"])
 
-    @torch.no_grad()
-    def update(self) -> None:
-        """Clip, decay, momentum and the step, at the rates
-        :meth:`fill_rate` left."""
+    def _decayed_grads(self):
+        """Per group (its parameters, their clipped gradients with the
+        decay added, its rate): the chain up to the moments."""
         params = [p for g in self.param_groups for p in g["params"]]
         for p in params:
             if p.grad is None:          # optax decays and carries momentum
@@ -145,13 +164,10 @@ class SGD(torch.optim.Optimizer):
         for g, rate in zip(self.param_groups, self.rates):
             ps = g["params"]
             grads = [p.grad for p in ps]
-            bufs = [self.state[p]["momentum_buffer"] for p in ps]
             if g["weight_decay"]:
                 grads = torch._foreach_add(grads, ps,
                                            alpha=g["weight_decay"])
-            torch._foreach_mul_(bufs, self.momentum)
-            torch._foreach_add_(bufs, grads)
-            torch._foreach_add_(ps, torch._foreach_mul(bufs, rate))
+            yield ps, grads, rate
 
     def step(self) -> None:
         self.fill_rate()
@@ -159,37 +175,126 @@ class SGD(torch.optim.Optimizer):
         self.count += 1
 
     def state_dict(self) -> dict:
-        return {"trace": {n: self.state[p]["momentum_buffer"]
-                          for n, p in self.named_params().items()
-                          if "momentum_buffer" in self.state[p]},
-                "count": self.count}
+        named = self.named_params().items()
+        return {**{key: {n: self.state[p][key] for n, p in named}
+                   for key in self.STATE}, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
         params = self.named_params()
-        unknown = sorted(set(state["trace"]) - set(params))
-        if unknown:
-            raise KeyError(f"optimizer state names parameters this model "
-                           f"does not train: {unknown[:5]}")
-        for n, t in state["trace"].items():    # in place: a graph reads it
-            self.state[params[n]]["momentum_buffer"].copy_(t)
+        for key in self.STATE:
+            if key not in state:
+                raise KeyError(f"optimizer state has no {key!r} (saved by "
+                               f"another optimizer?)")
+            unknown = sorted(set(state[key]) - set(params))
+            if unknown:
+                raise KeyError(f"optimizer state names parameters this "
+                               f"model does not train: {unknown[:5]}")
+            for n, t in state[key].items():    # in place: a graph reads it
+                self.state[params[n]][key].copy_(t)
         self.count = int(state["count"])
 
 
+class SGD(_Chain):
+    """SGD with momentum μ over :class:`_Chain`'s groups: v ← g + μ·v, then
+    p ← p − lr·v. ``momentum_dtype`` bfloat16 stores v in bfloat16
+    (``--bf16_momentum``). ``state_dict`` carries v as ``trace``."""
+
+    STATE = ("trace",)
+
+    def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]],
+                 learning_rate: Callable[[int], float], *,
+                 momentum: float = 0.9,
+                 momentum_dtype: torch.dtype = torch.float32, **kw):
+        super().__init__(named_params, learning_rate, **kw)
+        self.momentum = momentum
+        self.momentum_dtype = momentum_dtype
+        for p in self.named_params().values():
+            self.state[p]["trace"] = torch.zeros_like(p, dtype=momentum_dtype)
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """Clip, decay, momentum and the step, at the rates
+        :meth:`fill_rate` left."""
+        for ps, grads, rate in self._decayed_grads():
+            bufs = [self.state[p]["trace"] for p in ps]
+            if self.momentum_dtype == torch.float32:
+                torch._foreach_mul_(bufs, self.momentum)
+                torch._foreach_add_(bufs, grads)
+                torch._foreach_add_(ps, torch._foreach_mul(bufs, rate))
+                continue
+            # v = g + μ·t in place of g, μ·t a product in the trace's type
+            # (JAX takes the weak μ in that type too: 0.8984375)
+            torch._foreach_add_(grads, torch._foreach_mul(
+                bufs, weak_scalar(self.momentum, self.momentum_dtype)))
+            torch._foreach_add_(ps, torch._foreach_mul(grads, rate))
+            torch._foreach_copy_(bufs, grads)
+
+
+class Adam(_Chain):
+    """optax's ``scale_by_adam`` (b1, b2, eps outside the root) over
+    :class:`_Chain`'s groups. The bias corrections ``1 − b^t`` of update
+    ``count`` are float32 device tensors that :meth:`fill_rate` fills, as
+    the rate. ``state_dict`` carries the moments as ``mu`` and ``nu``."""
+
+    STATE = ("mu", "nu")
+
+    def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]],
+                 learning_rate: Callable[[int], float], *, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, **kw):
+        super().__init__(named_params, learning_rate, **kw)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        for p in self.named_params().values():
+            self.state[p]["mu"] = torch.zeros_like(p)
+            self.state[p]["nu"] = torch.zeros_like(p)
+        dev = self.rates[0].device
+        self.corrections = (torch.ones((), device=dev),
+                            torch.ones((), device=dev))
+
+    def fill_rate(self) -> None:
+        """The rates, and ``1 − b1^t``, ``1 − b2^t`` for t = ``count`` + 1
+        in float32, as optax's ``bias_correction`` takes them."""
+        super().fill_rate()
+        t = np.float32(self.count + 1)
+        for corr, b in zip(self.corrections, (self.b1, self.b2)):
+            corr.fill_(float(np.float32(1) - np.float32(b) ** t))
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """Clip, decay, the moments and the step, at the rates and bias
+        corrections :meth:`fill_rate` left."""
+        bc1, bc2 = self.corrections
+        for ps, grads, rate in self._decayed_grads():
+            mus = [self.state[p]["mu"] for p in ps]
+            nus = [self.state[p]["nu"] for p in ps]
+            torch._foreach_mul_(mus, self.b1)
+            torch._foreach_add_(mus, torch._foreach_mul(grads, 1 - self.b1))
+            torch._foreach_mul_(nus, self.b2)
+            torch._foreach_add_(nus, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1 - self.b2))
+            den = torch._foreach_sqrt(torch._foreach_div(nus, bc2))
+            torch._foreach_add_(den, self.eps)
+            u = torch._foreach_div(torch._foreach_div(mus, bc1), den)
+            torch._foreach_add_(ps, torch._foreach_mul(u, rate))
+
+
 def build_optimizer(args, cfg, model: nn.Module, steps_per_epoch: int
-                    ) -> Tuple[Callable[[int], float], SGD]:
-    """The train CLIs' factory (``optim.py:179``): the repeating LR decay,
-    the vgg16-only clip at 10, ``--o sgd``. Returns ``(schedule, opt)``."""
-    if getattr(args, "optimizer", "sgd") != "sgd":
-        raise NotImplementedError(f"--o {args.optimizer} is not ported yet "
-                                  f"(sgd only)")
-    if getattr(args, "bf16_momentum", False):
-        raise NotImplementedError("--bf16_momentum is not ported yet")
+                    ) -> Tuple[Callable[[int], float], _Chain]:
+    """The train CLIs' factory (``optim.py:179-202``): the repeating LR
+    decay, the vgg16-only clip at 10, ``--o sgd`` (with
+    ``--bf16_momentum``) or ``--o adam``. Returns ``(schedule, opt)``."""
     schedule = epoch_decay_schedule(args.lr, steps_per_epoch,
                                     args.lr_decay_step, args.lr_decay_gamma)
-    opt = SGD(model.named_parameters(), schedule,
-              momentum=cfg.TRAIN.MOMENTUM,
-              weight_decay=cfg.TRAIN.WEIGHT_DECAY,
-              double_bias=cfg.TRAIN.DOUBLE_BIAS,
-              bias_decay=cfg.TRAIN.BIAS_DECAY,
-              clip_norm=10.0 if args.net == "vgg16" else None)
-    return schedule, opt
+    common = dict(weight_decay=cfg.TRAIN.WEIGHT_DECAY,
+                  double_bias=cfg.TRAIN.DOUBLE_BIAS,
+                  bias_decay=cfg.TRAIN.BIAS_DECAY,
+                  clip_norm=10.0 if args.net == "vgg16" else None)
+    name = getattr(args, "optimizer", "sgd")
+    if name == "adam":
+        return schedule, Adam(model.named_parameters(), schedule, **common)
+    if name != "sgd":
+        raise ValueError(f"unknown optimizer {name!r} (expected sgd|adam)")
+    return schedule, SGD(
+        model.named_parameters(), schedule, momentum=cfg.TRAIN.MOMENTUM,
+        momentum_dtype=(torch.bfloat16 if getattr(args, "bf16_momentum",
+                                                  False)
+                        else torch.float32), **common)
