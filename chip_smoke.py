@@ -181,6 +181,23 @@ Phases, each ending the run nonzero on failure:
    images through ``EvalLoader``, ``eval_engine.detect_chunks`` and the VOC
    AP of ``data.evaluate``: fails below mAP 0.85 (the tool's
    ``--min_map``).
+   5h. ``[parallel]``: data parallelism (``tllod_torch/parallel``). (a)
+   DAF, MAD and IDF at B = 2 (two source and two target 600x1200 images)
+   on one rank through ``train.train_step``: launches a step as at B = 1,
+   finite losses, ms/step, images/s, busy and peak beside phase 5's B = 1
+   figures, every RoIAlignAvg call held to its plain version. (b)
+   ``--mGPUs`` on the one card: a real one-rank NCCL group joined by
+   ``cli.common.check_train_args``, DAF through ``cli.da_runner.
+   train_loop`` on in-memory loaders; one step from the seeded weights
+   held to the step without a group within twice the eager-vs-eager gap,
+   ms/step both ways, the bytes all-reduced; then ``TrainStepMulti``
+   replays with the all-reduces captured, each held to eager DP steps
+   from its state, eager and graph DP ms/step. (c) two spawned ranks on
+   the card over gloo, DAF, MAD and PA-ATF at global B = 2, one image per
+   domain per rank, against the single-process B = 2 step from the same
+   state: selections (NMS keep lists and counts, sampled RoIs and
+   labels) equal, losses and gradients within twice the eager gap,
+   parameters after the update equal on both ranks.
    Prints one ``{"kernels": [...]}`` line with times and bounds of every
    kernel at every shape.
 6. Prints the card's ``nvidia-smi`` name and power limit, then the last
@@ -577,6 +594,10 @@ def main() -> int:
     optim = optim_phase(cfg, args.seed, args.out)
     overfit = [overfit_phase(args.seed, args.out, bf) for bf in (False,
                                                                 True)]
+    # ---- 5h. [parallel]: B = 2; --mGPUs at world 1; two ranks ----
+    par_kernels, parallel = parallel_phase(cfg, args.seed, args.out,
+                                           summaries)
+    kernels += par_kernels
 
     log("[fused] summary: " + "; ".join(
         f"{name} eager {f['eager_ms_median']:.3f} graph "
@@ -606,7 +627,8 @@ def main() -> int:
                    "train": summaries.pop("daf"), "methods": summaries,
                    "faster_rcnn": supervised, "idf_eval": idf_eval,
                    "nms_adversarial": adversarial, "bf16": bf16,
-                   "optim": optim, "overfit": overfit}, f, indent=1)
+                   "optim": optim, "overfit": overfit,
+                   "parallel": parallel}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
 
     # ---- 6. card ----
@@ -3618,6 +3640,604 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
             "replay_busy_ms_by_kind": kinds,
             "peak_memory_gib": peaks["graph"],
             "eager_peak_memory_gib": peaks["eager"]}
+
+
+# ---- [parallel]: batch 2, --mGPUs at world 1, two ranks on one card ----
+
+PAR_STEPS = 3               # timed B = 2 steps a method in (a)
+PAR_A = ("daf", "mad", "idf")
+PAR_C = ("daf", "mad", "pa_atf")
+PAR_LOOP_STEPS = 4          # train_loop steps a run in (b)
+PAR_FUSE_K = 3              # graph steps held to eager DP steps in (b)
+# the least gap a DP step is held to where two eager steps agree exactly:
+# float32 rounding of the loss terms' reordered sums
+PAR_FLOOR = 1e-5
+# the least a single gradient tensor of a two-rank step is held to: a
+# domain head's gradient sums the source rows' and the target rows' terms
+# of opposite sign, which cancel to 1/100-1/1000 of either, and the ranks'
+# split of those sums moves it by 5.1e-4 of itself (DAF's
+# ins_da.classifier.weight) and 8.9e-4 (PA-ATF's); their share of the
+# all-parameter L2, held to PAR_FLOOR, is nil
+PAR_TENSOR_FLOOR = 2e-3
+# (c) runs MAD with each BatchStatNorm's bias this many times its scale
+# above 0, so that no BatchStatNorm-fed ReLU is within rounding of its kink
+PAR_NORM_SHIFT = 4.0
+
+
+def _method(name):
+    return next(s for s in TRAIN_METHODS if s.name == name)
+
+
+def batch2(spec, cfg, seed, dev, hw=None):
+    """Per-image lists of the two source and two target images of a B = 2
+    step (the phase-5 recipe at ``hw``, default the method's train size),
+    and their concatenations, the single-process B = 2 step's batches."""
+    import torch
+
+    hw = hw or spec.train_hw
+    nc = len(spec.classes)
+    srcs = [spec.add_fields(make_train_batch(*hw, 1, seed + 30 + i, cfg,
+                                             dev, nc)) for i in range(2)]
+    tgts = [make_train_batch(*hw, 0, seed + 40 + i, cfg, dev, nc)
+            for i in range(2)]
+
+    def cat(bs):
+        return {k: torch.cat([b[k] for b in bs]) for k in bs[0]}
+    return srcs, tgts, cat(srcs), cat(tgts)
+
+
+def batch2_phase(spec, cfg, seed, out_dir, b1):
+    """(a): the method's full-width step at B = 2 on one rank through
+    ``train_step``: launches a step at every site as at B = 1, finite
+    losses, ms/step, images/s, busy ms and peak memory beside phase 5's
+    B = 1 figures ``b1``; each RoIAlignAvg call and each proposal NMS
+    (both images in one launch) held to its plain version on the step's
+    own tensors. Returns (kernel entries, summary)."""
+    import torch
+    from tllod_torch.ops import _kernels
+    from tllod_torch.train import train_step
+
+    dev = torch.device("cuda")
+    tag = f"parallel] [b2 {spec.name}"
+    model, extra = spec.build(cfg, seed, dev)
+    opt = phase_optimizer(spec, cfg, model)
+    _, _, src, tgt = batch2(spec, cfg, seed, dev)
+
+    def step(i):
+        return train_step(model, spec.loss, opt, (src, tgt, *extra),
+                          seed=seed, step=i)
+
+    torch.backends.cudnn.allow_tf32 = True
+    step(0)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for i in range(1, 1 + PAR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.append(step(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {"roi_align_avg": len(spec.roi_sites),
+                "roi_align_avg_backward": len(spec.roi_sites),
+                "nms": len(spec.nms_sites)}
+    for name, n in per_step.items():
+        if launches.get(name, 0) != n * PAR_STEPS:
+            raise RuntimeError(f"[parallel] {spec.name} B = 2 launched "
+                               f"{name} {launches.get(name, 0)} times in "
+                               f"{PAR_STEPS} steps, {n} a step expected")
+    for m in metrics:
+        vals = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"[parallel] {spec.name} B = 2: non-finite "
+                               f"metrics {vals}")
+    ms = float(np.median(times))
+    busy, wall, _, kinds, _, _ = _profile_train_step(
+        step, 1 + PAR_STEPS, out_dir, cfg.POOLING_SIZE,
+        model.detector.dout_base_model, spec,
+        cfg.MAX_NUM_GT_BOXES * src["gt_boxes"].shape[0], suffix="_b2")
+    log(f"[{tag}] 2+2 images {spec.train_hw[0]}x{spec.train_hw[1]}: "
+        f"{ms:.3f} ms/step (median of {PAR_STEPS}), {4000.0 / ms:.2f} "
+        f"images/s, busy {busy:.3f} ms of {wall:.3f}, peak {peak:.2f} GiB; "
+        f"B = 1 (phase 5): {b1['ms_per_step']:.3f} ms/step, "
+        f"{b1['images_per_s']:.2f} images/s, busy {b1['busy_ms']:.3f} ms, "
+        f"peak {b1['peak_memory_gib']:.2f} GiB; launches {launches}; loss "
+        f"{float(metrics[-1]['loss']):.5f}, fg_cnt "
+        f"{float(metrics[-1]['fg_cnt']):.0f}")
+    torch.backends.cudnn.allow_tf32 = False
+    calls, nms_calls, _ = _capture_train(spec, model, extra, src, tgt)
+    entries = _backward_parity(
+        spec._replace(name=f"{spec.name} b2"), calls, launches)
+    for site, (boxes, scores, kw) in zip(spec.nms_sites, nms_calls):
+        entries.append(_nms_entry(f"{spec.name} b2 {site}", boxes, scores,
+                                  kw, launches.get("nms", 0)))
+    del model, extra, opt
+    torch.cuda.empty_cache()
+    return entries, {"ms_per_step": ms, "step_ms": times,
+                     "images_per_s": 4000.0 / ms, "busy_ms": busy,
+                     "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
+                     "peak_memory_gib": peak, "launches": launches}
+
+
+def _mem_roidb(n, seed, cfg, hw=TRAIN_HW):
+    """``n`` in-memory roidb entries of the phase-5 kind: filled rectangles
+    on noise, TRAIN_GT boxes each, at the train scale (no resize)."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    out = []
+    for _ in range(n):
+        im = rng.randint(0, 256, (h, w, 3)).astype(np.float32)
+        boxes = np.zeros((TRAIN_GT, 4), np.float32)
+        for k in range(TRAIN_GT):
+            bw, bh = rng.randint(30, w // 4), rng.randint(30, h // 4)
+            x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+            im[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
+            boxes[k] = [x1, y1, x1 + bw - 1, y1 + bh - 1]
+        out.append({"image": im, "height": h, "width": w, "flipped": False,
+                    "boxes": boxes,
+                    "gt_classes": rng.randint(1, len(CLASSES), TRAIN_GT)})
+    return out
+
+
+def _update_gap(after, other, before):
+    """|other - after| over |after - before|, all trained parameters
+    together (L2): a step's update told apart from another's."""
+    num = den = 0.0
+    for n, p in after.items():
+        num += float((other[n] - p).double().square().sum())
+        den += float((p - before[n]).double().square().sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _loss_gap(m, ref):
+    return max(abs(float(m[k]) - float(v)) / max(abs(float(v)), 1e-30)
+               for k, v in ref.items() if k != "fg_cnt")
+
+
+def _profile_dp_step(step, out_dir):
+    """One profiled eager DP step: the device breakdown, and the host time
+    of the collectives (the process group's ops and NCCL's, by name: calls
+    and CPU ms, and their device ms). Returns the summary."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, _, kinds = _device_breakdown(
+        prof, wall, "eager DP step (world 1)",
+        os.path.join(out_dir, "chip_smoke_dp_step_trace.json"))
+    rows = [(e.key, e.count, e.cpu_time_total / 1e3,
+             e.device_time_total / 1e3) for e in prof.key_averages()
+            if any(s in e.key.lower() for s in ("allreduce", "all_reduce",
+                                                "nccl", "c10d"))]
+    rows.sort(key=lambda r: -r[2])
+    log("[profile] eager DP step collectives (calls, host ms, device ms): "
+        + "; ".join(f"{k} {n}x {c:.3f} {d:.3f}" for k, n, c, d in rows[:8]))
+    return {"wall_ms": wall, "busy_ms": busy, "busy_ms_by_kind": kinds,
+            "collectives": rows}
+
+
+def world1_phase(cfg, seed, out_dir):
+    """(b): ``--mGPUs`` on the one card, a real NCCL group of one rank
+    joined by ``cli.common.check_train_args``, DAF's step through
+    ``cli.da_runner.train_loop`` on in-memory loaders. One step from the
+    seeded weights with the group against the same step without it, run
+    twice (the eager-vs-eager gap): losses and the update (L2 over every
+    trained parameter) within twice that gap, or PAR_FLOOR; fg_cnt equal.
+    Then PAR_LOOP_STEPS timed steps each way. Then ``TrainStepMulti``
+    under the group: each graph replay (the gradient all-reduce and the
+    loss terms' all-reduces captured) from the state of two eager DP steps,
+    held to them as ``fused_phase`` holds a replay, and eager DP against
+    graph DP ms/step. Returns the summary."""
+    import torch
+    import tllod_torch.cli.da_runner as runner_mod
+    from tllod_torch.cli.common import build_train_parser, check_train_args
+    from tllod_torch.data.loader import DetectionLoader
+    from tllod_torch.methods.daf import DAFModel, daf_loss
+    from tllod_torch.ops import _kernels
+    from tllod_torch.parallel import dist
+    from tllod_torch.train import TrainStepMulti, train_step
+    from tllod_torch.utils.optim import build_optimizer
+
+    torch.backends.cudnn.allow_tf32 = True
+    s_roidb = _mem_roidb(PAR_LOOP_STEPS + 1, seed + 50, cfg)
+    t_roidb = _mem_roidb(PAR_LOOP_STEPS + 1, seed + 60, cfg)
+    model = DAFModel(len(CLASSES), cfg, "vgg16", device="cuda", seed=seed)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def argv(steps):
+        return ["--net", "vgg16", "--bs", "1", "--epochs", "1",
+                "--max_steps", str(steps), "--disp_interval", "1000",
+                "--save_dir", os.path.join(out_dir, "world1"),
+                "--device", "cuda"]
+
+    def run(flags, steps):
+        args = build_train_parser("world1").parse_args(argv(steps) + flags)
+        check_train_args(args)
+        model.load_state_dict(state0)
+        loaders = (DetectionLoader(s_roidb, cfg, domain=1, seed=cfg.RNG_SEED,
+                                   shuffle=False),
+                   DetectionLoader(t_roidb, cfg, domain=0,
+                                   seed=cfg.RNG_SEED + 1, shuffle=False))
+        rows, stamps = [], []
+
+        def after(step, epoch, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            rows.append({k: float(v) for k, v in metrics.items()})
+        _kernels.reset_launches()
+        dist.stats["gradient_bytes"] = 0
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        runner_mod.train_loop("daf", model, daf_loss, loaders,
+                              lambda s, t: (s, t), args, cfg,
+                              after_step=after)
+        launches = dict(_kernels.launches)
+        ms = [float(d) * 1e3 for d in np.diff(stamps)]
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return rows, ms, params, launches, dist.stats["gradient_bytes"]
+
+    saved_ckpt = runner_mod.save_checkpoint
+    # the run's last checkpoint (1.1 GB) is not what this phase reads
+    runner_mod.save_checkpoint = lambda path, **kw: None
+    try:
+        rows_a, _, p_a, _, _ = run([], 1)
+        rows_b, _, p_b, _, _ = run([], 1)
+        _, ms_a, _, launch_a, _ = run([], PAR_LOOP_STEPS)
+        rows_c, _, p_c, _, nbytes = run(["--mGPUs"], 1)
+        if (dist.world(), dist.backend()) != (1, "nccl"):
+            raise RuntimeError(f"--mGPUs on one card joined "
+                               f"{dist.world()} ranks over {dist.backend()}")
+        _, ms_c, _, launch_c, _ = run(["--mGPUs"], PAR_LOOP_STEPS)
+    finally:
+        runner_mod.save_checkpoint = saved_ckpt
+    gap_l, gap_u = _loss_gap(rows_b[0], rows_a[0]), _update_gap(p_a, p_b, p0)
+    dp_l, dp_u = _loss_gap(rows_c[0], rows_a[0]), _update_gap(p_a, p_c, p0)
+    fg_equal = rows_c[0]["fg_cnt"] == rows_a[0]["fg_cnt"]
+    med_a, med_c = float(np.median(ms_a[1:])), float(np.median(ms_c[1:]))
+    n_grads = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    log(f"[parallel] [world1] DAF vgg16 through train_loop, 1+1 600x1200 "
+        f"images a step: one step from the seeded weights with --mGPUs (NCCL, "
+        f"world 1) against the step without a group: losses rel. "
+        f"{dp_l:.3g}, update rel. L2 {dp_u:.3g}; the step without a group "
+        f"again: {gap_l:.3g}, {gap_u:.3g}; fg_cnt equal {fg_equal}; "
+        f"all-reduced {nbytes} bytes in the step ({n_grads} trainable "
+        f"parameters, float32, one flattened all-reduce, plus the loss "
+        f"terms' scalars); {PAR_LOOP_STEPS} steps each way: --mGPUs "
+        f"{med_c:.3f} ms/step, no group {med_a:.3f} ms/step (median of "
+        f"steps 2-{PAR_LOOP_STEPS}; each {', '.join(f'{t:.1f}' for t in ms_c)}"
+        f" | {', '.join(f'{t:.1f}' for t in ms_a)}); launches {launch_c} "
+        f"(no group {launch_a})")
+    if launch_c != launch_a or not launch_c.get("roi_align_avg"):
+        raise RuntimeError(f"[parallel] world-1 launches {launch_c}, no "
+                           f"group {launch_a}")
+    if not fg_equal or dp_l > max(2 * gap_l, PAR_FLOOR) \
+            or dp_u > max(2 * gap_u, PAR_FLOOR):
+        raise RuntimeError("[parallel] the world-1 --mGPUs step parts from "
+                           "the step without a group beyond the eager gap")
+
+    # the fused trainer under the group: each replay from the state of two
+    # eager DP steps
+    batches = [(make_train_batch(*TRAIN_HW, 1, seed + 70 + 2 * i, cfg,
+                                 "cuda"),
+                make_train_batch(*TRAIN_HW, 0, seed + 71 + 2 * i, cfg,
+                                 "cuda")) for i in range(PAR_FUSE_K)]
+    _, opt = build_optimizer(build_train_parser("w").parse_args(argv(1)),
+                             cfg, model, 10 ** 6)
+    model.load_state_dict(state0)
+
+    def save():
+        return ({k: v.clone() for k, v in model.state_dict().items()},
+                {k: ({n: t.clone() for n, t in v.items()}
+                     if isinstance(v, dict) else v)
+                 for k, v in opt.state_dict().items()})
+
+    def restore(st):
+        model.load_state_dict(st[0])
+        opt.load_state_dict(st[1])
+
+    def trained():
+        return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def eager(args):
+        return train_step(model, daf_loss, opt, args, seed=seed,
+                          step=opt.count)
+    fused = {}
+    runner = TrainStepMulti(model, daf_loss, opt, seed=seed)
+    _kernels.reset_launches()
+    runner(opt.count, batches[:2])          # first sight, then the capture
+    torch.cuda.synchronize()
+    (captured,) = [g.launches for g in runner.graphs.values()]
+    loss_r = loss_e = 0.0
+    gap_r, gap_e = [], []
+    for args in batches:
+        st = save()
+        before = trained()
+        m_e = eager(args)
+        p_e = trained()
+        restore(st)
+        m_e2 = eager(args)
+        p_e2 = trained()
+        restore(st)
+        m_r = runner(opt.count, [args])
+        loss_r = max(loss_r, _loss_gap({k: v[0] for k, v in m_r.items()},
+                                       m_e))
+        loss_e = max(loss_e, _loss_gap(m_e2, m_e))
+        gap_r.append(_update_gap(p_e, trained(), before))
+        gap_e.append(_update_gap(p_e, p_e2, before))
+        if float(m_r["fg_cnt"][0]) != float(m_e["fg_cnt"]):
+            raise RuntimeError("[parallel] a DP replay's fg_cnt differs "
+                               "from the eager DP step's")
+        del st, before, p_e, p_e2
+    times = {"eager": [], "graph": []}
+    seq = [batches[i % PAR_FUSE_K] for i in range(10)]
+    for _ in range(3):
+        for way, fn in (("eager", lambda: [eager(a) for a in seq]),
+                        ("graph", lambda: runner(opt.count, seq))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[way].append((time.perf_counter() - t0) * 1e3 / len(seq))
+    e_ms, g_ms = (float(np.median(times[w])) for w in ("eager", "graph"))
+    prof_dp = _profile_dp_step(lambda: eager(batches[0]), out_dir)
+    log(f"[parallel] [fused] DAF under the world-1 NCCL group: the graph "
+        f"holds {captured} launches and the all-reduces; {PAR_FUSE_K} "
+        f"replays, each from the state of two eager DP steps: losses rel. "
+        f"{loss_r:.3g} (eager-eager {loss_e:.3g}), update rel. L2 "
+        f"{', '.join(f'{g:.3g}' for g in gap_r)} (eager-eager "
+        f"{', '.join(f'{g:.3g}' for g in gap_e)}); eager DP "
+        f"{e_ms:.3f} ms/step, graph DP {g_ms:.3f} ms/step (3 rounds of 10 "
+        f"each way, in turns)")
+    if loss_r > max(2 * loss_e, PAR_FLOOR) \
+            or max(gap_r) > max(2 * max(gap_e), PAR_FLOOR):
+        raise RuntimeError("[parallel] DP replays part from eager DP steps "
+                           "beyond the eager gap")
+    fused.update(loss_rel=loss_r, loss_rel_eager_eager=loss_e,
+                 update_gap=gap_r, update_gap_eager_eager=gap_e,
+                 eager_ms=times["eager"], graph_ms=times["graph"],
+                 eager_ms_median=e_ms, graph_ms_median=g_ms,
+                 launches_per_replay=captured, eager_profile=prof_dp)
+    del runner
+    dist.leave()
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"ms_per_step_mgpus": med_c, "ms_per_step_no_group": med_a,
+            "step_ms_mgpus": ms_c, "step_ms_no_group": ms_a,
+            "loss_rel": dp_l, "update_gap": dp_u,
+            "loss_rel_eager_eager": gap_l, "update_gap_eager_eager": gap_u,
+            "allreduce_bytes_per_step": nbytes,
+            "trainable_params": n_grads, "launches": launch_c,
+            "fused": fused}
+
+
+def _raise_norm_biases(model):
+    """Each BatchStatNorm's bias raised by PAR_NORM_SHIFT times its scale
+    (MAD's encoders and decoders; none elsewhere in PAR_C). At biases
+    around 0 some of the 10^6 BatchStatNorm-fed ReLUs of a MAD step sit
+    within float32 rounding of the kink, and the two ranks' sums of the
+    batch statistics, in another order than one process's, send one to the
+    other side: the views' weight gradients then part by 0.2-1.6% on an
+    H100 (the CPU parity tests raise them for the same reason)."""
+    import torch
+
+    with torch.no_grad():
+        for m in model.modules():
+            if type(m).__name__ == "BatchStatNorm":
+                m.bias.add_(PAR_NORM_SHIFT * m.scale)
+
+
+def _two_rank_worker(rank, coord, seed, out_dir):
+    """(c), one rank: for each of PAR_C, the single-process B = 2 step
+    twice from the seeded state (the reference, and the eager-vs-eager
+    gap), before the group exists (MAD's BatchStatNorm biases raised,
+    ``_raise_norm_biases``); then, in a gloo group of two ranks on
+    cuda:0, this rank's image of each domain through one DP step from the
+    same state; the selections, losses and gradients against the
+    reference, the updated parameters against the other rank's. Writes
+    ``parallel_rank<r>.json``."""
+    import torch
+    sys.path.insert(0, REPO)
+    from tllod_torch.config import Config, cfg_from_list
+    from tllod_torch.parallel import dist
+    from tllod_torch.train import StepRandom, _loss_and_grads, step_metrics
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_from_list(Config(), VGG16_CITYSCAPE)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    sel = _Selections()
+
+    def one_step(spec, model, extra, opt, src, tgt):
+        with sel:
+            out, loss = _loss_and_grads(model, spec.loss, opt,
+                                        (src, tgt, *extra),
+                                        StepRandom(seed, 7, dev))
+        m = {k: float(v) for k, v in step_metrics(out, loss).items()}
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        opt.step()
+        return m, sel.pop(), grads
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    def l2(got, want):
+        """|got - want| over |want|, every gradient together (L2)."""
+        num = sum(float((got[n].cpu().double() - w.cpu().double()).square()
+                        .sum()) for n, w in want.items())
+        den = sum(float(w.cpu().double().square().sum())
+                  for w in want.values())
+        return (num / max(den, 1e-300)) ** 0.5
+
+    refs, states = {}, {}
+    for name in PAR_C:
+        spec = _method(name)
+        model, extra = spec.build(cfg, seed, dev)
+        _raise_norm_biases(model)
+        opt = phase_optimizer(spec, cfg, model)
+        _, _, src, tgt = batch2(spec, cfg, seed, dev)
+        s0 = {k: v.clone() for k, v in model.state_dict().items()}
+        m1, sel1, g1 = one_step(spec, model, extra, opt, src, tgt)
+        model.load_state_dict(s0)
+        opt = phase_optimizer(spec, cfg, model)
+        m2, _, g2 = one_step(spec, model, extra, opt, src, tgt)
+        refs[name] = (m1, [t.cpu() for t in sel1],
+                      {n: g.cpu() for n, g in g1.items()},
+                      max(abs(m2[k] - v) / max(abs(v), 1e-30)
+                          for k, v in m1.items()),
+                      {n: rel(g2[n], g) for n, g in g1.items()},
+                      l2(g2, g1))
+        states[name] = {k: v.cpu() for k, v in s0.items()}
+        del model, extra, opt, g1, g2
+        torch.cuda.empty_cache()
+
+    dist.join(dev, coord=coord, world_size=2, rank=rank, backend="gloo")
+    result = {}
+    for name in PAR_C:
+        spec = _method(name)
+        model, extra = spec.build(cfg, seed, dev)
+        model.load_state_dict(states[name])
+        opt = phase_optimizer(spec, cfg, model)
+        srcs, tgts, _, _ = batch2(spec, cfg, seed, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, s, g = one_step(spec, model, extra, opt, srcs[rank], tgts[rank])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        m_ref, s_ref, g_ref, gap_l, gap_g, gap_l2 = refs[name]
+        # the selections: NMS keep lists and counts, sampled RoIs (their
+        # boxes; the batch column is the local image's) and labels, this
+        # rank's image's rows of the reference's
+        n_sel, sel_ok = 0, len(s) == len(s_ref)
+        for got, want in zip(s, s_ref):
+            got = got.cpu()
+            if want.dim() == 3 and want.shape[-1] == 5:       # sampled RoIs
+                ok = torch.equal(got[..., 1:], want[rank:rank + 1, :, 1:])
+            elif want.dim() >= 1 and want.shape[0] == 2:      # per image
+                ok = torch.equal(got, want[rank:rank + 1])
+            else:                                   # labels, image-major
+                n = want.shape[0] // 2
+                ok = torch.equal(got, want[rank * n:(rank + 1) * n])
+            sel_ok &= bool(ok)
+            n_sel += 1
+        loss_err = max(abs(m[k] - v) / max(abs(v), 1e-30)
+                       for k, v in m_ref.items())
+        grad_err = {n: rel(g[n].cpu(), w) for n, w in g_ref.items()}
+        # each tensor against twice its own eager gap, PAR_TENSOR_FLOOR
+        # at least
+        limit = {n: max(2 * gap_g[n], PAR_TENSOR_FLOOR) for n in g_ref}
+        worst = max(limit, key=lambda n: grad_err[n] / limit[n])
+        loosest = max(limit, key=limit.get)
+        over = sorted(n for n in limit if grad_err[n] > limit[n])
+        same = True
+        for p in model.parameters():
+            hi = p.detach().clone()
+            dist.all_reduce_(hi, "max")
+            same &= bool(torch.equal(hi, p.detach()))
+        result[name] = {
+            "seconds": secs, "selections": n_sel, "selections_equal":
+            sel_ok, "loss_rel": loss_err, "loss_rel_eager_eager": gap_l,
+            "grad_rel_worst": grad_err[worst], "grad_worst": worst,
+            "grad_worst_limit": limit[worst],
+            "grad_worst_eager_eager": gap_g[worst], "grads_over": over,
+            "grad_loosest": loosest, "grad_loosest_limit": limit[loosest],
+            "grad_loosest_rel": grad_err[loosest], "grads": len(grad_err),
+            "grad_l2": l2(g, g_ref), "grad_l2_eager_eager": gap_l2,
+            "params_equal_across_ranks": same,
+            "grad_set_equal": set(g) == set(g_ref)}
+        del model, extra, opt, g
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.leave()
+    with open(os.path.join(out_dir, f"parallel_rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def two_rank_phase(seed, out_dir):
+    """(c): two ranks on the one card over gloo (NCCL refuses two ranks on
+    one GPU), each a spawned process holding one source and one target
+    image of the global B = 2 step (``_two_rank_worker``); a correctness
+    run, its times gloo's host staging, not a speed figure. Fails unless
+    every rank's selections equal the single-process step's; its losses,
+    and its gradients all together (relative L2), are within twice the
+    eager-vs-eager gap or PAR_FLOOR; each gradient tensor within twice its
+    own eager gap or PAR_TENSOR_FLOOR (the loosest of these limits is
+    printed); and the parameters after the update are equal on both
+    ranks. Returns the summary."""
+    import torch
+    import torch.multiprocessing as mp
+    from tllod_torch.parallel import dist
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(_two_rank_worker, args=(f"localhost:{dist.free_port()}", seed,
+                                     out_dir), nprocs=2, join=True)
+    secs = time.perf_counter() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"parallel_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    bad = []
+    for name in PAR_C:
+        for r, res in enumerate(ranks):
+            x = res[name]
+            lim_l = max(2 * x["loss_rel_eager_eager"], PAR_FLOOR)
+            lim_l2 = max(2 * x["grad_l2_eager_eager"], PAR_FLOOR)
+            log(f"[parallel] [2 ranks] {name} rank {r} (a correctness run: "
+                f"gloo staged through the host, {x['seconds']:.2f} s for the "
+                f"step): {x['selections']} selections equal "
+                f"{x['selections_equal']}; losses rel. {x['loss_rel']:.3g} "
+                f"(limit {lim_l:.3g}, eager-eager "
+                f"{x['loss_rel_eager_eager']:.3g}); {x['grads']} gradients, "
+                f"rel. L2 all together {x['grad_l2']:.3g} (limit "
+                f"{lim_l2:.3g}, eager-eager {x['grad_l2_eager_eager']:.3g}), "
+                f"each tensor within twice its own eager gap (floor "
+                f"{PAR_TENSOR_FLOOR:g}): nearest its limit "
+                f"{x['grad_worst']} rel. {x['grad_rel_worst']:.3g} (limit "
+                f"{x['grad_worst_limit']:.3g}, eager-eager "
+                f"{x['grad_worst_eager_eager']:.3g}), loosest limit "
+                f"{x['grad_loosest_limit']:.3g} ({x['grad_loosest']}, rel. "
+                f"{x['grad_loosest_rel']:.3g}), over its limit "
+                f"{x['grads_over'] or 'none'}; parameters after the update "
+                f"equal on both ranks {x['params_equal_across_ranks']}")
+            if not (x["selections_equal"] and x["grad_set_equal"]
+                    and x["params_equal_across_ranks"]
+                    and x["loss_rel"] <= lim_l
+                    and x["grad_l2"] <= lim_l2
+                    and not x["grads_over"]):
+                bad.append(f"{name} rank {r}")
+    log(f"[parallel] [2 ranks] {secs:.1f} s for both processes, start to "
+        f"join")
+    if bad:
+        raise RuntimeError(f"[parallel] two ranks part from one process: "
+                           f"{bad}")
+    return {"seconds": secs, "ranks": ranks}
+
+
+def parallel_phase(cfg, seed, out_dir, summaries):
+    """``[parallel]``: (a) ``batch2_phase`` for PAR_A, (b) ``world1_phase``,
+    (c) ``two_rank_phase``. Returns (kernel entries, summary)."""
+    import torch
+
+    entries, b2 = [], {}
+    for name in PAR_A:
+        e, b2[name] = batch2_phase(_method(name), cfg, seed, out_dir,
+                                   summaries[name])
+        entries += e
+    world1 = world1_phase(cfg, seed, out_dir)
+    two = two_rank_phase(seed, out_dir)
+    torch.backends.cudnn.allow_tf32 = False
+    return entries, {"batch2": b2, "world1": world1, "two_ranks": two}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -25,6 +25,7 @@ from test_torch_train_cli import REPO, TINY, _eval_args
 from tllod_torch.cli import (da_runner, generate_pseudo_labels, idf_test,
                              idf_train)
 from tllod_torch.config import Config, cfg_from_list
+from tllod_torch.data import loader as loader_mod
 from tllod_torch.data.loader import DetectionLoader
 from tllod_torch.models.faster_rcnn import FasterRCNN
 from tools.generate_pseudo_labels import write_voc_xml as jax_write_voc_xml
@@ -177,7 +178,7 @@ def test_idf_train_cli_records_separation_resume_and_test(
         read.append((name, out[0].split, len(out[1])))
         return out
 
-    monkeypatch.setattr(idf_train, "DetectionLoader", Loader)
+    monkeypatch.setattr(loader_mod, "DetectionLoader", Loader)
     monkeypatch.setattr(idf_train, "combined_roidb", spy)
     monkeypatch.setattr(da_runner, "train_step", step)
     save = str(tmp_path / "out")

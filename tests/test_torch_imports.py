@@ -27,8 +27,8 @@ roots = {{m.split(".")[0] for m in set(sys.modules) - before}}
 print(sorted(roots & set({FORBIDDEN!r} + {LAZY!r})))
 """
 # the modules of the MAF, ATF and PT-MAF slice, of the PA-ATF slice, of
-# the US-DAF and supervised-train slice, of the MAD slice and of the IDF
-# slice, which the walk must reach
+# the US-DAF and supervised-train slice, of the MAD slice, of the IDF
+# slice and of the data-parallel slice, which the walk must reach
 SLICE = ("tllod_torch.methods.maf", "tllod_torch.methods.atf",
          "tllod_torch.methods.pt_maf", "tllod_torch.cli.da_runner",
          "tllod_torch.cli.maf_train", "tllod_torch.cli.atf_train",
@@ -42,7 +42,9 @@ SLICE = ("tllod_torch.methods.maf", "tllod_torch.methods.atf",
          "tllod_torch.cli.mad_train", "tllod_torch.cli.mad_test",
          "tllod_torch.data.union", "tllod_torch.methods.idf",
          "tllod_torch.cli.idf_train", "tllod_torch.cli.idf_test",
-         "tllod_torch.cli.generate_pseudo_labels")
+         "tllod_torch.cli.generate_pseudo_labels",
+         "tllod_torch.parallel", "tllod_torch.parallel.dist",
+         "tllod_torch.parallel.multihost")
 
 
 def test_port_and_chip_smoke_import_no_jax_nor_heavy_io():

@@ -71,17 +71,24 @@ def record_jax_step(monkeypatch, loss_fn, params, *, modules=(j_frcnn,),
     sampling = []
 
     def anchor_target(gt_boxes, im_info, anchors, cfg, key, _fn=None):
-        k_fg, k_bg = jax.random.split(jax.random.split(key, 1)[0])
+        # one key per image (rpn.py:224), split into fg and bg
         n = anchors.shape[0]
-        sampling.append([np.asarray(jax.random.uniform(k, (n,)))[None]
-                         for k in (k_fg, k_bg)])
+        per = [jax.random.split(k)
+               for k in jax.random.split(key, gt_boxes.shape[0])]
+        sampling.append([np.stack([np.asarray(jax.random.uniform(ks[j],
+                                                                 (n,)))
+                                   for ks in per]) for j in range(2)])
         return _fn(gt_boxes, im_info, anchors, cfg, key)
 
     def proposal_target(rois, gt_boxes, cfg, key, _fn=None):
-        ks = jax.random.split(jax.random.split(key, 1)[0], 4)
+        # one key per image (rpn.py:313), split four ways
         n, s = rois.shape[1] + gt_boxes.shape[1], cfg.TRAIN.BATCH_SIZE
-        sampling.append([np.asarray(jax.random.uniform(k, (m,)))[None]
-                         for k, m in zip(ks, (n, n, s, s))])
+        per = [jax.random.split(k, 4)
+               for k in jax.random.split(key, rois.shape[0])]
+        sampling.append([np.stack([np.asarray(jax.random.uniform(ks[j],
+                                                                 (m,)))
+                                   for ks in per])
+                         for j, m in enumerate((n, n, s, s))])
         return _fn(rois, gt_boxes, cfg, key)
 
     for mod in modules:

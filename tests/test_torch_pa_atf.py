@@ -28,7 +28,7 @@ import pytest
 import torch
 from flax import linen as fnn
 
-from torch_parity import configs, random_params
+from torch_parity import configs, random_params, recorded_decisions
 from test_torch_maf import (DA_KEYS, DET_KEYS, TINY, check_grads,
                             check_step, ge, mask_draws, record_jax_step,
                             replay_of, to_torch)
@@ -188,12 +188,12 @@ def test_club_head_matches_jax(n_valid, monkeypatch):
     _check_module_grads(mod, j_gp)
 
 
-def _case(overrides):
+def _case(overrides, b=1, seed=3):
     cfg_j, cfg_t = configs(overrides)
-    src = ge._make_batch(1, HW, HW, domain=1, seed=0)
-    tgt = ge._make_batch(1, HW, HW, domain=0, seed=1)
+    src = ge._make_batch(b, HW, HW, domain=1, seed=0)
+    tgt = ge._make_batch(b, HW, HW, domain=0, seed=1)
     j_model = j_pa.PAATFModel(num_classes=9, cfg=cfg_j, net="vgg16_thin")
-    params = random_params(j_model, np.random.RandomState(3), src, tgt,
+    params = random_params(j_model, np.random.RandomState(seed), src, tgt,
                            training=True)
     # keep the instance head's sigmoid off 0 and 1, where float32 saturates
     params["ins_da"]["classifier"]["kernel"] *= 0.1
@@ -205,7 +205,11 @@ def pa_case():
     return _case(TINY)
 
 
-def _step(case, branch, monkeypatch):
+def _step(case, branch, monkeypatch, check_sites=None):
+    """JAX's step recorded and replayed into the port; with
+    ``check_sites``, it is called on the port's recorded decisions
+    (``torch_parity.recorded_decisions``) before the gradients are
+    compared."""
     cfg_t, cfg_j, params, src, tgt = case
     j_model = j_pa.PAATFModel(num_classes=9, cfg=cfg_j, net="vgg16_thin",
                               club_branch=branch)
@@ -242,7 +246,8 @@ def _step(case, branch, monkeypatch):
     # calls, then ins_da's two on the ancillary source rows and the target
     assert len(sampling) == 4 and len(masks) == 10
     assert len(proposal_draws) == 1 and len(perms) == 3
-    assert [m.shape[0] for m in masks[:6:2]] == [8, 8, post]
+    b = src["im_data"].shape[0]
+    assert [m.shape[0] for m in masks[:6:2]] == [8 * b, 8 * b, post * b]
     replay = replay_of(sum(sampling, []) + proposal_draws
                        + [mask_draws(*masks[0:6:2]),
                           mask_draws(*masks[1:6:2])]
@@ -253,13 +258,16 @@ def _step(case, branch, monkeypatch):
                        device="cpu")
     load_jax_params(model, params)
     rng = StepRandom(0, 0, "cpu", replay=replay)
-    out = model(to_torch(src), to_torch(tgt), training=True, rng=rng)
+    with recorded_decisions() as sites:
+        out = model(to_torch(src), to_torch(tgt), training=True, rng=rng)
     loss = pa_atf_loss(out)
     loss.backward()
     check_step(out, loss, j_out, j_loss, KEYS, rng)
     assert {k.split(".")[0] for k in model.state_dict()} == {
         "detector", "backbone_anc", "img_da3", "img_da4", "img_da5",
         "ins_da", "club3", "club4", "club5"}
+    if check_sites is not None:
+        check_sites(sites)
     check_grads(model, j_grads, seam=ANC_FROZEN)
 
 

@@ -24,6 +24,7 @@ import torch
 from tllod_torch.cli import (da_runner, daf_test, daf_train,
                              faster_rcnn_test, faster_rcnn_train, pt_maf_train,
                              us_daf_test, us_daf_train)
+from tllod_torch.data import loader as loader_mod
 from tllod_torch.data.loader import DetectionLoader
 from tllod_torch.utils.optim import epoch_decay_schedule
 
@@ -187,10 +188,11 @@ def test_pt_maf_train_needs_a_teacher(synth_voc, tmp_path, monkeypatch):
 
 
 def test_unported_train_flags_raise(synth_voc, tmp_path, monkeypatch):
-    """Several processes are not ported: ``--mGPUs``, ``--tp`` and
-    ``--sp`` raise before anything is built."""
+    """Tensor and spatial parallelism are not ported: ``--tp 2`` and
+    ``--sp`` raise before anything is built (``--mGPUs`` is data
+    parallelism, ``tests/test_torch_parallel.py``)."""
     monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
-    for flags in (["--mGPUs"], ["--tp", "2"], ["--sp"]):
+    for flags in (["--tp", "2"], ["--sp"], ["--mGPUs", "--tp", "2"]):
         with pytest.raises(NotImplementedError):
             _train(str(tmp_path), *flags)
 
@@ -715,7 +717,7 @@ def test_mad_train_cli_loaders_epoch_resume_and_eval(synth_voc, tmp_path,
         indexes.append([b["roidb_index"].tolist() for b in batch_args])
         return step_fn(model, loss_fn, opt, batch_args, **kw)
 
-    monkeypatch.setattr(mad_train, "DetectionLoader", Loader)
+    monkeypatch.setattr(loader_mod, "DetectionLoader", Loader)
     monkeypatch.setattr(DetectionLoader, "_load_batch", load)
     monkeypatch.setattr(da_runner, "train_step", step)
     save = str(tmp_path / "out")

@@ -579,3 +579,46 @@ def test_daf_fused_and_unfused_passes_agree(rng):
         np.testing.assert_allclose(fused[key].numpy(), w.numpy(),
                                    rtol=1e-3, atol=1e-3 if key == "rois"
                                    else 1e-5, err_msg=key)
+
+
+def test_train_step_gives_frozen_parameters_the_step_s_own_gradient():
+    """A parameter that the optimizer leaves frozen (``default_trainable``:
+    a BatchStatNorm's ``scale`` and ``bias`` under ``/bn``, as JAX's mask
+    freezes MAD's and IDF's) still gets a gradient, as JAX's
+    ``value_and_grad`` gives it one; after two ``train_step`` calls it is
+    the second step's own, not the sum of both."""
+    from tllod_torch.methods.mad import BatchStatNorm
+    from tllod_torch.train import train_step
+    from tllod_torch.utils.optim import SGD
+
+    class Tiny(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.enc = torch.nn.Module()
+            self.enc.conv = torch.nn.Conv2d(2, 3, 1)
+            self.enc.bn0 = BatchStatNorm(3)
+
+        def forward(self, x, training, rng):
+            y = torch.relu(self.enc.bn0(self.enc.conv(x)) + 0.3)
+            return {"x_loss": (y * torch.arange(3.0)[:, None, None]).mean()}
+
+    torch.manual_seed(0)
+    model = Tiny()
+    opt = SGD(model.named_parameters(), lambda count: 0.1)
+    frozen = {"enc.bn0.scale", "enc.bn0.bias"}
+    assert set(model.state_dict()) - set(opt.named_params()) == frozen
+    x = torch.randn(2, 2, 4, 5)
+
+    def step(i):
+        train_step(model, lambda out: out["x_loss"], opt, (x,), seed=0,
+                   step=i, rng=StepRandom(0, i, "cpu"))
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    step(0)
+    model.zero_grad()
+    model(x, True, None)["x_loss"].backward()
+    want = {n: p.grad.clone() for n, p in model.named_parameters()}
+    got = step(1)
+    for n, w in want.items():
+        assert w.abs().max() > 0, n
+        torch.testing.assert_close(got[n], w, rtol=0, atol=0, msg=n)

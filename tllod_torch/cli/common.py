@@ -1,9 +1,10 @@
 """Shared entry-point machinery of the port's CLIs (``methods/common.py:
 27-373``): the reference's flag surface, the dataset aliases, config
 resolution (defaults → ``cfgs/<net>.yml`` → dataset ``set_cfgs`` → ``--set``
-overrides), the train loss logger, the step profiler and the batch padding
-of ``--fuse_steps``. Reading a ``cfgs/*.yml`` file needs
-``yaml``."""
+overrides), the train loss logger, the step profiler, the batch padding
+of ``--fuse_steps`` and the process group of ``--mGPUs`` and
+``--shard_eval`` (:func:`setup_parallel`). Reading a ``cfgs/*.yml`` file
+needs ``yaml``."""
 
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from tllod_torch.config import Config, cfg_from_file, cfg_from_list
+from tllod_torch.device import resolve_device
+from tllod_torch.parallel import dist
 
 REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
                                          ".."))
@@ -25,7 +28,7 @@ REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
 def build_train_parser(description: str) -> argparse.ArgumentParser:
     """The reference train scripts' flags (``methods/DAF/DAF_train.py:
     44-132``, as ``methods/common.py:27``), plus ``--device`` and
-    ``--cfg``. Flags of features not ported yet (several processes) are
+    ``--cfg``. Flags of features not ported yet (``--tp``, ``--sp``) are
     accepted and raise in :func:`check_train_args`."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--dataset", default="cityscape", type=str)
@@ -52,7 +55,11 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
                         "PyTorch versions of the kernels)")
     p.add_argument("--ls", dest="large_scale", action="store_true")
     p.add_argument("--mGPUs", dest="m_chips", action="store_true",
-                   help="multi-GPU: not ported yet (raises)")
+                   help="data parallelism: one process per visible GPU "
+                        "(NCCL; gloo with --device cpu), each streaming a "
+                        "strided roidb shard at --bs / world images; the "
+                        "step is the single-process --bs step. Across "
+                        "hosts, set TLLOD_DIST_COORD/NPROCS/PID instead")
     p.add_argument("--tp", default=1, type=int,
                    help="tensor parallelism: not ported yet (raises if > 1)")
     p.add_argument("--bs", dest="batch_size", default=1, type=int)
@@ -94,19 +101,50 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
 
 
 def check_train_args(args) -> None:
-    """Raise for flags whose features are not ported yet."""
-    unported = [flag for flag, on in (
-        ("--mGPUs", args.m_chips), ("--tp", args.tp > 1), ("--sp", args.sp))
-        if on]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not ported yet")
+    """Raise for flags whose features are not ported yet (``--tp > 1``,
+    ``--sp``), then join the process group the run asks for
+    (:func:`setup_parallel`) and check that ``--bs`` splits over it."""
+    dist.check_model_parallel(args.tp, args.sp)
+    setup_parallel(args, args.m_chips)
+    dist.check_batch_divisible(args.batch_size, dist.world())
+
+
+def setup_parallel(args, wanted: bool) -> None:
+    """Join the process group of this run before any model or loader is
+    built (``methods/common.py:399-462``), and point ``args.device`` at
+    the rank's device:
+
+    - with ``TLLOD_DIST_COORD``, ``TLLOD_DIST_NPROCS`` and
+      ``TLLOD_DIST_PID`` set, the group they name (every rank is started
+      by the caller, on one host or several);
+    - else, when ``wanted`` (``--mGPUs``, ``--shard_eval``): on a host with
+      several GPUs, one worker per GPU, each this CLI module run again
+      (``torch.multiprocessing``, spawn), after which this process exits;
+      with one GPU, or on the CPU, a group of one rank in this process.
+
+    NCCL on the card, gloo with ``--device cpu``."""
+    dev = resolve_device(args.device)
+    joined = dist.join_from_env(dev)
+    if joined is None and wanted:
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if n > 1:
+            from tllod_torch.ops import _kernels
+            _kernels.build_all()        # once, before the workers start
+            dist.spawn_cli(n)
+            raise SystemExit(0)
+        joined = dist.join(dev, coord=f"localhost:{dist.free_port()}",
+                           world_size=1, rank=0)
+    if joined is not None:
+        args.device = str(joined)
 
 
 class MetricLogger:
     """disp_interval loss printing (reference ``DAF_train.py:410-446``),
     optionally mirrored to a JSONL file. The step's metrics stay on the
     device: each step adds them into a running-sum vector there, and the
-    one copy to the host happens when the interval prints."""
+    one copy to the host happens when the interval prints. Under a process
+    group the metrics are the global batch's on every rank, and rank 0
+    alone prints them."""
 
     def __init__(self, interval: int, jsonl_path: Optional[str] = None):
         self.interval = max(1, interval)
@@ -114,7 +152,9 @@ class MetricLogger:
         self.keys = None
         self.acc: Optional[torch.Tensor] = None
         self.n = 0
-        self.jsonl = open(jsonl_path, "a") if jsonl_path else None
+        self.quiet = dist.rank() != 0
+        self.jsonl = (open(jsonl_path, "a") if jsonl_path and not self.quiet
+                      else None)
 
     def update(self, step: int, epoch: int, lr: float,
                metrics: Dict[str, torch.Tensor]) -> None:
@@ -142,6 +182,9 @@ class MetricLogger:
                         dict(zip(keys, row)))
 
     def _display(self, step: int, epoch: int, lr: float) -> None:
+        if self.quiet:
+            self.acc, self.n, self.t0 = None, 0, time.time()
+            return
         vals = (self.acc / self.n).tolist()          # the one host copy
         dt = time.time() - self.t0
         avg = dict(zip(self.keys, vals))
@@ -212,8 +255,10 @@ def stack_batches(batches: Sequence[Dict[str, np.ndarray]]
     images only to their own batch's largest (H, W), so the K can disagree;
     every array is zero-padded to the elementwise max over the K, as the
     loader pads within a batch. ``im_info`` keeps the true sizes, so
-    anchors and proposals in the padding are masked as before. Returns K
-    batches of one shape (JAX stacks them on a leading axis for its scan)."""
+    anchors and proposals in the padding are masked as before. Under a
+    process group the image shape is then agreed across ranks
+    (``methods/common.py:495-506``). Returns K batches of one shape (JAX
+    stacks them on a leading axis for its scan)."""
     out = [dict(b) for b in batches]
     for key in batches[0]:
         vals = [np.asarray(b[key]) for b in batches]
@@ -224,6 +269,8 @@ def stack_batches(batches: Sequence[Dict[str, np.ndarray]]
                 pv = np.zeros(shape, v.dtype)
                 pv[tuple(slice(0, s) for s in v.shape)] = v
                 b[key] = pv
+    if dist.active():
+        out = [dist.sync_image_shapes(b) for b in out]
     return out
 
 
@@ -256,7 +303,10 @@ def build_test_parser(description: str) -> argparse.ArgumentParser:
                    help="images per forward. No reference counterpart "
                         "(*_test.py are strictly per-image)")
     p.add_argument("--shard_eval", action="store_true",
-                   help="multi-device eval: not ported yet (raises)")
+                   help="multi-GPU eval: one process per visible GPU, each "
+                        "detecting a strided roidb shard; the detections "
+                        "are gathered and every rank scores them all "
+                        "(also under TLLOD_DIST_*)")
     p.add_argument("--vis", action="store_true",
                    help="annotated detection images: not ported yet "
                         "(raises)")

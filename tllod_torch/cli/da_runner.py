@@ -23,8 +23,15 @@ model itself without one, so its CLI passes ``honours_bf16=False`` and
 trains in float32 under ``--bf16``, as do the MAD, IDF and supervised
 CLIs, which run :func:`train_loop` directly.
 
-Not ported from the JAX runner, and raising in
-:func:`tllod_torch.cli.common.check_train_args`: several processes.
+Under a process group (``--mGPUs``, or the ``TLLOD_DIST_*`` launch, joined
+in :func:`tllod_torch.cli.common.check_train_args` before the model and
+the loaders), each rank streams its strided roidb shard at ``--bs /
+world`` images (:func:`tllod_torch.data.loader.train_loader`), its padded
+image shape agreed with the other ranks'
+(:func:`tllod_torch.parallel.dist.sync_image_shapes`), and each step is
+the single-process step of the global batch (:mod:`tllod_torch.train`).
+Rank 0 alone logs and writes checkpoints; every rank resumes from the same
+file.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ from tllod_torch.cli.common import (DATASET_MAP, MetricLogger, StepProfiler,
                                     check_train_args, resolve_config,
                                     stack_batches)
 from tllod_torch.cli.faster_rcnn_test import evaluate_split
-from tllod_torch.data.loader import DetectionLoader
+from tllod_torch.data.loader import DetectionLoader, train_loader
 from tllod_torch.data.roidb import combined_roidb
+from tllod_torch.parallel import dist
 from tllod_torch.train import TrainStepMulti, train_step
 from tllod_torch.utils.checkpoint import resume_train_state, save_checkpoint
 from tllod_torch.utils.optim import build_optimizer
@@ -81,12 +89,12 @@ def run_da_training(method_name: str, model_ctor: Callable,
     s_ds, s_roidb, _, _ = combined_roidb(ds["s_imdb"])
     _, t_roidb, _, _ = combined_roidb(ds["t_imdb"])
     print(f"source {len(s_roidb)} target {len(t_roidb)} roidb entries")
-    s_loader = DetectionLoader(s_roidb, cfg, batch_size=args.batch_size,
-                               domain=1, seed=cfg.RNG_SEED,
-                               num_workers=args.num_workers)
-    t_loader = DetectionLoader(t_roidb, cfg, batch_size=args.batch_size,
-                               domain=0, seed=cfg.RNG_SEED + 1,
-                               num_workers=args.num_workers)
+    s_loader = train_loader(s_roidb, cfg, batch_size=args.batch_size,
+                            domain=1, seed=cfg.RNG_SEED,
+                            num_workers=args.num_workers)
+    t_loader = train_loader(t_roidb, cfg, batch_size=args.batch_size,
+                            domain=0, seed=cfg.RNG_SEED + 1,
+                            num_workers=args.num_workers)
 
     kw = dict(extra_model_kwargs or {})
     if honours_bf16 and args.bf16:
@@ -154,7 +162,7 @@ def train_loop(method_name: str, model, loss_fn: Callable,
         next(it)
 
     def host_batches(epoch):
-        batches = [next(it) for it in its]
+        batches = [dist.sync_image_shapes(next(it)) for it in its]
         if epoch_batches is not None:
             batches = epoch_batches(epoch, batches)
         return batches
@@ -197,7 +205,8 @@ def train_loop(method_name: str, model, loss_fn: Callable,
                 finish(step, epoch, metrics)
             done = ((args.max_steps and step >= args.max_steps)
                     or epoch == args.max_epochs)
-            if done or epoch % max(1, args.save_epoch_interval) == 0:
+            if (done or epoch % max(1, args.save_epoch_interval) == 0) \
+                    and dist.rank() == 0:
                 path = os.path.join(output_dir, f"{method_name}_"
                                     f"{args.session}_{epoch}_{step}.pth")
                 save_checkpoint(path, model=model, optimizer=opt, step=step,

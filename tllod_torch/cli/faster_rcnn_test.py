@@ -23,7 +23,8 @@ import os
 import numpy as np
 import torch
 
-from tllod_torch.cli.common import DATASET_MAP, build_test_parser, resolve_config
+from tllod_torch.cli.common import (DATASET_MAP, build_test_parser,
+                                    resolve_config, setup_parallel)
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.eval_engine import evaluate_model
 from tllod_torch.models.faster_rcnn import FasterRCNN
@@ -45,9 +46,13 @@ def load_weights(model: FasterRCNN, path: str) -> None:
 def evaluate_split(args, split: str) -> dict:
     """Evaluate the weights ``args.load_name`` on the dataset's ``split``
     (a key of ``DATASET_MAP[args.dataset]``: ``s_test``, ``t_test`` or
-    ``all_test``); returns the AP dict."""
-    if args.shard_eval or args.vis:
-        raise NotImplementedError("--shard_eval and --vis are not ported yet")
+    ``all_test``); returns the AP dict. Under ``--shard_eval`` or the
+    ``TLLOD_DIST_*`` launch each rank detects its roidb shard and every
+    rank scores the gathered detections (:func:`tllod_torch.eval_engine.
+    run_detection`)."""
+    if args.vis:
+        raise NotImplementedError("--vis is not ported yet")
+    setup_parallel(args, args.shard_eval)
     cfg = resolve_config(args)
     np.random.seed(cfg.RNG_SEED)
 

@@ -29,7 +29,7 @@ import numpy as np
 from tllod_torch.cli.common import (DATASET_MAP, build_train_parser,
                                     check_train_args, resolve_config)
 from tllod_torch.cli.da_runner import train_loop
-from tllod_torch.data.loader import DetectionLoader
+from tllod_torch.data.loader import train_loader
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.models.faster_rcnn import FasterRCNN, detection_loss
 from tllod_torch.zoo import load_pretrained_backbone
@@ -46,9 +46,9 @@ def main(argv=None) -> int:
 
     dataset, roidb, _, _ = combined_roidb(DATASET_MAP[args.dataset]["s_imdb"])
     print(f"{len(roidb)} roidb entries")
-    loader = DetectionLoader(roidb, cfg, batch_size=args.batch_size,
-                             domain=1, seed=cfg.RNG_SEED,
-                             num_workers=args.num_workers)
+    loader = train_loader(roidb, cfg, batch_size=args.batch_size,
+                          domain=1, seed=cfg.RNG_SEED,
+                          num_workers=args.num_workers)
     model = FasterRCNN(dataset.num_classes, cfg, args.net,
                        args.class_agnostic, device=args.device,
                        seed=cfg.RNG_SEED)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from tllod_torch.cli.common import (DATASET_MAP, build_test_parser,
-                                    resolve_config)
+                                    resolve_config, setup_parallel)
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.eval_engine import evaluate_model
 from tllod_torch.methods.idf import IDFInfer, IDFModel
@@ -46,8 +46,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--gamma", default=5.0, type=float)
     parser.add_argument("--eta", default=1.0, type=float)
     args = parser.parse_args(argv)
-    if args.shard_eval or args.vis:
-        raise NotImplementedError("--shard_eval and --vis are not ported yet")
+    if args.vis:
+        raise NotImplementedError("--vis is not ported yet")
+    setup_parallel(args, args.shard_eval)
     cfg = resolve_config(args)
     np.random.seed(cfg.RNG_SEED)
 

@@ -35,10 +35,11 @@ from tllod_torch.cli.common import (DATASET_MAP, build_train_parser,
                                     check_train_args, resolve_config)
 from tllod_torch.cli.da_runner import train_loop
 from tllod_torch.data.factory import data_dir, register_dataset
-from tllod_torch.data.loader import DetectionLoader
+from tllod_torch.data.loader import train_loader
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.data.voc import CLASS_SETS, VOCDetection
 from tllod_torch.methods.idf import IDFModel, idf_loss
+from tllod_torch.parallel import dist
 from tllod_torch.zoo import load_pretrained_backbone
 
 
@@ -92,9 +93,11 @@ def record_writer(output_dir: str, session: int, steps_per_epoch: int,
                   interval: int):
     """``after_step`` that appends the step's losses to
     ``record_loss.txt`` and its ``dist*`` values to ``record_dist.txt``,
-    every ``interval`` steps, in the JAX script's format."""
+    every ``interval`` steps, in the JAX script's format; under a process
+    group, rank 0 alone (the metrics are the global batch's on every
+    rank)."""
     def write(step, epoch, metrics):
-        if step % max(1, interval):
+        if step % max(1, interval) or dist.rank() != 0:
             return
         head = (f"[session {session}][epoch {epoch:2d}]"
                 f"[iter {step:4d}/{steps_per_epoch:4d}] ")
@@ -126,12 +129,12 @@ def main(argv=None) -> int:
     s_ds, s_roidb, _, _ = combined_roidb(s_name)
     _, t_roidb, _, _ = combined_roidb(t_name)
     print(f"source {len(s_roidb)} target(pseudo) {len(t_roidb)} entries")
-    s_loader = DetectionLoader(s_roidb, cfg, batch_size=args.batch_size,
-                               domain=1, seed=cfg.RNG_SEED,
-                               num_workers=args.num_workers)
-    t_loader = DetectionLoader(t_roidb, cfg, batch_size=args.batch_size,
-                               domain=0, seed=cfg.RNG_SEED + 1,
-                               num_workers=args.num_workers)
+    s_loader = train_loader(s_roidb, cfg, batch_size=args.batch_size,
+                            domain=1, seed=cfg.RNG_SEED,
+                            num_workers=args.num_workers)
+    t_loader = train_loader(t_roidb, cfg, batch_size=args.batch_size,
+                            domain=0, seed=cfg.RNG_SEED + 1,
+                            num_workers=args.num_workers)
 
     model = IDFModel(s_ds.num_classes, cfg, args.net, args.class_agnostic,
                      eta=args.eta, gamma=args.gamma, efocal=args.ef,

@@ -29,7 +29,7 @@ import numpy as np
 from tllod_torch.cli.common import (DATASET_MAP, build_train_parser,
                                     check_train_args, resolve_config)
 from tllod_torch.cli.da_runner import train_loop
-from tllod_torch.data.loader import DetectionLoader
+from tllod_torch.data.loader import train_loader
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.methods.mad import MADModel, mad_loss
 from tllod_torch.zoo import load_pretrained_backbone
@@ -101,12 +101,12 @@ def main(argv=None) -> int:
             f"{s2_ds.classes})")
     print(f"s1 {len(s1_roidb)} s2 {len(s2_roidb)} roidb entries, "
           f"{s1_ds.num_classes} classes")
-    l1 = DetectionLoader(s1_roidb, cfg, batch_size=args.batch_size,
-                         domain=1, seed=cfg.RNG_SEED,
-                         num_workers=args.num_workers)
-    l2 = DetectionLoader(s2_roidb, cfg, batch_size=args.batch_size,
-                         domain=0, seed=cfg.RNG_SEED + 7,
-                         num_workers=args.num_workers)
+    l1 = train_loader(s1_roidb, cfg, batch_size=args.batch_size,
+                      domain=1, seed=cfg.RNG_SEED,
+                      num_workers=args.num_workers)
+    l2 = train_loader(s2_roidb, cfg, batch_size=args.batch_size,
+                      domain=0, seed=cfg.RNG_SEED + 7,
+                      num_workers=args.num_workers)
 
     model = MADModel(s1_ds.num_classes, cfg, args.net, args.class_agnostic,
                      device=args.device, seed=cfg.RNG_SEED)

@@ -19,6 +19,8 @@ from typing import Dict, Iterator, List
 import numpy as np
 
 from tllod_torch.config import Config
+from tllod_torch.parallel import dist
+from tllod_torch.parallel.multihost import shard_roidb
 from tllod_torch.data.transforms import (crop_to_ratio, load_image_bgr,
                                          prep_image, scaled_size)
 
@@ -33,7 +35,8 @@ class DetectionLoader:
     def __init__(self, roidb: List[dict], cfg: Config, *, batch_size: int = 1,
                  domain: int = 1, seed: int = 3, pad_multiple: int = 100,
                  prefetch: int = 4, shuffle: bool = True,
-                 num_workers: int = 0):
+                 num_workers: int = 0, sample_offset: int = 0,
+                 sample_stride: int = 1):
         self.roidb = roidb
         self.cfg = cfg
         self.batch_size = batch_size
@@ -50,6 +53,10 @@ class DetectionLoader:
         # worker count; cv2 releases the GIL, so threads scale on
         # multi-core hosts.
         self.num_workers = num_workers
+        # a rank's shard keys each image's stream by its global position
+        # (train_loader)
+        self.sample_offset = sample_offset
+        self.sample_stride = sample_stride
 
         ratios = np.array([min(max(e["width"] / float(e["height"]), 0.5), 2.0)
                            for e in roidb])
@@ -120,6 +127,7 @@ class DetectionLoader:
 
     def _sample_rng(self, epoch: int, position: int) -> np.random.RandomState:
         """Deterministic per-sample stream, independent of worker count."""
+        position = position * self.sample_stride + self.sample_offset
         return np.random.RandomState(
             (self.seed * 1000003 + epoch * 8191 + position) % (2 ** 31 - 1))
 
@@ -182,6 +190,24 @@ class DetectionLoader:
             # drain so the worker can exit
             while not q.empty():
                 q.get_nowait()
+
+
+def train_loader(roidb: List[dict], cfg: Config, *, batch_size: int,
+                 **kw) -> DetectionLoader:
+    """The train loader of this rank. Under a process group of ``world``
+    ranks, rank r streams ``shard_roidb``'s strided slice (images r,
+    r + world, ...) at ``batch_size / world`` images, as JAX's
+    multi-process runner does (``methods/da_runner.py:49-66``), each
+    image's per-sample stream keyed by its position in the global order
+    (local position · world + r). Where the shards sort as the whole roidb
+    does (one aspect ratio), step k's global batch is then the
+    single-process loader's batch k. Without a group, the plain loader."""
+    if dist.world() == 1:
+        return DetectionLoader(roidb, cfg, batch_size=batch_size, **kw)
+    dist.check_batch_divisible(batch_size, dist.world())
+    local, _ = shard_roidb(roidb, dist.rank(), dist.world())
+    return DetectionLoader(local, cfg, batch_size=batch_size // dist.world(),
+               sample_offset=dist.rank(), sample_stride=dist.world(), **kw)
 
 
 class EvalLoader:

@@ -1,5 +1,5 @@
 """Evaluation engine: run the detector over a dataset → all_boxes → VOC mAP
-(``tllod_tpu/eval_engine.py:41-213``, single process; reference
+(``tllod_tpu/eval_engine.py:41-213``; reference
 ``methods/DAF/DAF_test.py:255-351``).
 
 :func:`detect_chunks` is the hot loop. It takes ``(indices, batch)`` pairs
@@ -10,10 +10,17 @@ chunk k is queued, its results start a non-blocking copy to pinned host
 memory, and only then are chunk k-1's results collected, so host-side
 decoding and collection overlap device compute. Nothing in the forward
 waits for the device: NMS writes its keep lists on the card.
+
+Under a process group (``--shard_eval``, the ``TLLOD_DIST_*`` launch)
+:func:`run_detection` detects this rank's strided roidb shard, gathers
+every rank's packed detections and merges them, so every rank holds and
+scores the same ``all_boxes`` (``tllod_tpu/eval_engine.py:60-85``); rank
+r > 0 writes its scoring files under ``<output_dir>/rank<r>``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -25,6 +32,10 @@ from tllod_torch.data.evaluate import (evaluate_detections,
                                        evaluate_detections_roidb, print_eval)
 from tllod_torch.data.loader import EvalLoader
 from tllod_torch.models.faster_rcnn import FasterRCNN
+from tllod_torch.parallel import dist
+from tllod_torch.parallel.multihost import (allgather_bytes,
+                                            merge_detections,
+                                            pack_detections, shard_roidb)
 from tllod_torch.train import collect_detections, postprocess_detections_batch
 
 
@@ -98,7 +109,24 @@ def run_detection(model: FasterRCNN, dataset, roidb, cfg: Config, *,
                   class_agnostic: bool = False, verbose_every: int = 200,
                   eval_batch: int = 1) -> List[List]:
     """Run inference over ``roidb`` → all_boxes[class][image] arrays,
-    ``eval_batch`` images per forward."""
+    ``eval_batch`` images per forward; under a process group, over this
+    rank's shard, then gathered from every rank."""
+    kw = dict(max_per_image=max_per_image, score_thresh=score_thresh,
+              class_agnostic=class_agnostic, verbose_every=verbose_every,
+              eval_batch=eval_batch)
+    if not dist.active():
+        return _detect_roidb(model, dataset, roidb, cfg, **kw)
+    local_roidb, local_idx = shard_roidb(roidb, dist.rank(), dist.world())
+    print(f"sharded eval: rank {dist.rank()}/{dist.world()} takes "
+          f"{len(local_roidb)}/{len(roidb)} images", flush=True)
+    local = _detect_roidb(model, dataset, local_roidb, cfg, **kw)
+    parts = allgather_bytes(pack_detections(local_idx, local,
+                                            dataset.num_classes))
+    return merge_detections(parts, dataset.num_classes, len(roidb))
+
+
+def _detect_roidb(model, dataset, roidb, cfg, *, max_per_image,
+                  score_thresh, class_agnostic, verbose_every, eval_batch):
     num_classes = dataset.num_classes
     loader = EvalLoader(roidb, cfg)
     n = len(loader)
@@ -135,6 +163,8 @@ def evaluate_model(model: FasterRCNN, dataset, roidb, cfg: Config,
                               max_per_image=max_per_image,
                               class_agnostic=class_agnostic,
                               eval_batch=eval_batch)
+    if dist.rank() > 0:
+        output_dir = os.path.join(output_dir, f"rank{dist.rank()}")
     if not hasattr(dataset, "annopath_template"):
         aps = evaluate_detections_roidb(dataset, roidb, all_boxes,
                                         use_07_metric=True)

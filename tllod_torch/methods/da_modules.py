@@ -11,6 +11,7 @@ onto the other name for name.
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +21,7 @@ from tllod_torch.models.backbones import dropout
 from tllod_torch.models.layers import Conv2d, Linear
 from tllod_torch.ops.grl import grad_reverse
 from tllod_torch.ops.losses import binary_cross_entropy
+from tllod_torch.parallel.dist import gather_rows, gmean, rank
 
 
 class ImageDA(nn.Module):
@@ -50,7 +52,7 @@ def image_da_loss(logits: torch.Tensor, domain: torch.Tensor
     logp = F.log_softmax(logits.float(), dim=-1)
     is_src = (domain > 0)[:, None, None]
     picked = torch.where(is_src, logp[..., 1], logp[..., 0])
-    return -picked.mean()
+    return -gmean(picked)
 
 
 class InstanceDA(nn.Module):
@@ -88,9 +90,12 @@ def blocked_instance_labels(domain: torch.Tensor, total_rows: int,
     """The reference ``InstanceLabelResizeLayer``'s label layout
     (``lib/ATF/LabelResizeLayer.py:43-60``): image i's label fills rows
     ``[i·256, (i+1)·256)`` of a zero vector whatever the true RoI count;
-    returns (total_rows, 1) float labels."""
-    rows = torch.arange(total_rows, device=domain.device) // block
-    d = domain.float().reshape(-1)
+    returns (total_rows, 1) float labels. The rows and images are the
+    global batch's: under a process group this rank's ``total_rows`` are
+    its block of them."""
+    rows = (torch.arange(total_rows, device=domain.device)
+            + rank() * total_rows) // block
+    d = gather_rows(domain.float().reshape(-1))
     picked = d[torch.clamp(rows, 0, d.shape[0] - 1)]
     return torch.where(rows < d.shape[0], picked, 0.0)[:, None]
 
@@ -116,11 +121,13 @@ def fused_box_head(det, pooled, *, deterministic: bool, rng):
     step instead of once per set. The cat is taken in the (R, C, P, P) order
     fc6 flattens in, which is the RoIAlign kernel's own layout on the card:
     the cat is the only copy, and its backward hands each set a contiguous
-    (R, C, P, P) gradient. Dropout masks are drawn once, over all rows."""
+    (R, C, P, P) gradient. Dropout masks are drawn once, over all rows,
+    each set's rows a block of the global draw (:meth:`StepRandom.rows`)."""
     sizes = [p.shape[0] for p in pooled]
     cat = torch.cat([p.permute(0, 3, 1, 2) for p in pooled], dim=0)
-    fc7 = det.box_head(cat.permute(0, 2, 3, 1), deterministic=deterministic,
-                       rng=rng)
+    with rng.rows(sizes) if rng is not None else nullcontext():
+        fc7 = det.box_head(cat.permute(0, 2, 3, 1),
+                           deterministic=deterministic, rng=rng)
     return fc7.split(sizes)
 
 

@@ -31,6 +31,7 @@ from tllod_torch.methods.da_modules import (ImageDA, InstanceDA,
                                             source_target_pass)
 from tllod_torch.models.faster_rcnn import FasterRCNN
 from tllod_torch.models.layers import set_compute_dtype
+from tllod_torch.parallel.dist import gmean, gsum
 
 
 class DAFModel(nn.Module):
@@ -71,8 +72,8 @@ class DAFModel(nn.Module):
         ins_prob = self.ins_da(fc7, deterministic=deterministic, rng=rng)
         ins_loss = instance_da_loss(ins_prob, domain, rois_per_image)
         img_prob = F.softmax(img_logits, dim=-1)[..., consistency_channel]
-        target = img_prob.mean().detach()
-        cst_loss = torch.sum((ins_prob - target) ** 2)
+        target = gmean(img_prob.detach())
+        cst_loss = gsum((ins_prob - target) ** 2)
         return img_loss, ins_loss, cst_loss
 
     def forward(self, src: Dict[str, Any], tgt: Dict[str, Any], *,

@@ -52,6 +52,7 @@ from tllod_torch.models.faster_rcnn import FasterRCNN, nhwc_features
 from tllod_torch.models.rpn import RPNHead
 from tllod_torch.ops.grl import grad_reverse
 from tllod_torch.ops.losses import softmax_cross_entropy
+from tllod_torch.parallel.dist import gmean
 
 # (lo, hi) blocks of each branch stage: conv1-3, conv4, conv5
 STAGES = ((0, 3), (3, 4), (4, 5))
@@ -63,7 +64,7 @@ def dam(feat: torch.Tensor) -> torch.Tensor:
     the channel mean of its sigmoid, zeroed below its own mean over the
     whole batch. (B, H, W, 1)."""
     avg = torch.sigmoid(feat.detach()).mean(dim=-1, keepdim=True)
-    return torch.where(avg < avg.mean(), 0.0, avg)
+    return torch.where(avg < gmean(avg), 0.0, avg)
 
 
 def pairwise_dist(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6
@@ -71,7 +72,7 @@ def pairwise_dist(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6
     """The mean over positions of ``‖a − b + ε‖₂`` over the channels (the
     last axis), ``F.pairwise_distance``'s ε in the difference
     (``idf.py:55-59``)."""
-    return torch.sqrt(((a - b + eps) ** 2).sum(dim=-1)).mean()
+    return gmean(torch.sqrt(((a - b + eps) ** 2).sum(dim=-1)))
 
 
 def focal_loss(logits: torch.Tensor, label: int, gamma: float = 5.0,
@@ -84,7 +85,7 @@ def focal_loss(logits: torch.Tensor, label: int, gamma: float = 5.0,
     clipped = torch.minimum(torch.maximum(p, torch.full_like(p, 1e-10)),
                             torch.ones_like(p))
     mod = torch.exp(-gamma * p) if efocal else (1.0 - p) ** gamma
-    return (-mod * torch.log(clipped)).mean()
+    return gmean(-mod * torch.log(clipped))
 
 
 class NetDConv(nn.Module):

@@ -63,6 +63,8 @@ from tllod_torch.models.backbones import dropout
 from tllod_torch.models.faster_rcnn import FasterRCNN
 from tllod_torch.ops.grl import grad_reverse
 from tllod_torch.ops.losses import binary_cross_entropy
+from tllod_torch.parallel import dist
+from tllod_torch.parallel.dist import gmean, gsum
 
 IMG_SIZE = (40, 76)   # the fixed upsample target (lib/MAD/faster_rcnn.py:92)
 
@@ -78,7 +80,10 @@ def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
 class BatchStatNorm(nn.Module):
     """Normalization by the batch's own statistics over every dimension but
     the channels (dim 1): (B, H, W) for an NCHW map, B for (B, C); learned
-    ``scale`` and ``bias``, no running averages (``mad.py:41-56``)."""
+    ``scale`` and ``bias``, no running averages (``mad.py:41-56``). Under
+    a process group the statistics are the global batch's, the mean and
+    then the variance about it as JAX's two passes, each a differentiable
+    all-reduce (:func:`tllod_torch.parallel.dist.global_sum`)."""
 
     def __init__(self, features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -88,7 +93,14 @@ class BatchStatNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dims = [0] + list(range(2, x.dim()))
-        var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+        if dist.active():
+            n = x.numel() // x.shape[1] * dist.world()
+            mean = dist.global_sum(x.sum(dims, keepdim=True)) / n
+            var = dist.global_sum(((x - mean) ** 2).sum(dims,
+                                                        keepdim=True)) / n
+        else:
+            var, mean = torch.var_mean(x, dim=dims, correction=0,
+                                       keepdim=True)
         shape = [1, -1] + [1] * (x.dim() - 2)
         return ((x - mean) * torch.rsqrt(var + self.eps)
                 * self.scale.view(shape) + self.bias.view(shape))
@@ -289,7 +301,7 @@ def bilinear_resize(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return ((a - b) ** 2).mean()
+    return gmean((a - b) ** 2)
 
 
 def sym_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -313,8 +325,8 @@ def mv_consistency(ins_prob_mean: torch.Tensor, img_score_mean: torch.Tensor,
                    channel: int) -> torch.Tensor:
     """Σ((mean per-RoI sigmoid − detached mean image-head probability on
     ``channel``)²) (``mad.py:153-160``)."""
-    target = F.softmax(img_score_mean, -1)[..., channel].mean().detach()
-    return ((ins_prob_mean - target) ** 2).sum()
+    target = gmean(F.softmax(img_score_mean.detach(), -1)[..., channel])
+    return gsum((ins_prob_mean - target) ** 2)
 
 
 class MADModel(nn.Module):
@@ -445,8 +457,8 @@ class MADModel(nn.Module):
                 instance_da_loss(ins1, one, out1["rois"].shape[1])
                 + instance_da_loss(ins2, zero, out2["rois"].shape[1]))
             out["da_cst_loss"] = (
-                ((ins1 - F.softmax(score1, -1)[..., 1].mean()) ** 2).sum()
-                + ((ins2 - F.softmax(score2, -1)[..., 0].mean()) ** 2).sum())
+                gsum((ins1 - gmean(F.softmax(score1, -1)[..., 1])) ** 2)
+                + gsum((ins2 - gmean(F.softmax(score2, -1)[..., 0])) ** 2))
 
         up1 = bilinear_resize(f1, self.img_size).permute(0, 3, 1, 2)
         up2 = bilinear_resize(f2, self.img_size).permute(0, 3, 1, 2)

@@ -62,6 +62,7 @@ from tllod_torch.models.layers import Conv2d, Linear, set_compute_dtype
 from tllod_torch.ops.grl import grad_reverse
 from tllod_torch.ops.losses import binary_cross_entropy
 from tllod_torch.ops.roi_pool import roi_pool
+from tllod_torch.parallel.dist import gather_rows, gmean
 
 SUPERVISED_KEYS = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls",
                    "rcnn_loss_box")
@@ -123,11 +124,16 @@ class CLUBHead(nn.Module):
     def forward(self, xa: torch.Tensor, xs: torch.Tensor,
                 valid: torch.Tensor, rng) -> torch.Tensor:
         """xa, xs: (R, P, P, C) aligned and specific features; valid: (R,)
-        bool gt-slot validity; ``rng`` draws the shuffle."""
+        bool gt-slot validity; ``rng`` draws the shuffle. The shuffle and
+        the loss are over the global batch's rows: under a process group
+        every rank gathers every rank's rows (:func:`gather_rows`), and the
+        gradient of each row returns to the rank that holds it."""
+        xa = gather_rows(grad_reverse(xa, self.alpha))
+        xs = gather_rows(grad_reverse(xs, self.alpha))
+        valid = gather_rows(valid)
         r = xa.shape[0]
-        xa = grad_reverse(xa, self.alpha)
-        xs = grad_reverse(xs, self.alpha)
-        perm = torch.sort(rng.uniform((r,)), stable=True).indices
+        perm = torch.sort(rng.uniform((r,), replicated=True),
+                          stable=True).indices
         pairs = torch.cat([torch.cat([xa, xs], dim=-1),
                            torch.cat([xa, xs[perm]], dim=-1)])
         x = F.relu(self.conv1(pairs.permute(0, 3, 1, 2)))
@@ -253,11 +259,11 @@ class PAATFModel(nn.Module):
         out["tgt_da_img_loss"], _ = self._image_losses(t_taps,
                                                        tgt["domain"])
         s_ins = self.ins_da(fc7_a, deterministic=deterministic, rng=rng)
-        out["da_ins_loss"] = torch.abs(
-            s_ins - (src["domain"] > 0).float()[0]).mean()
+        out["da_ins_loss"] = gmean(torch.abs(
+            s_ins - (src["domain"] > 0).float()[0]))
         t_ins = self.ins_da(fc7_t, deterministic=deterministic, rng=rng)
-        out["tgt_da_ins_loss"] = torch.abs(
-            t_ins - (tgt["domain"] > 0).float()[0]).mean()
+        out["tgt_da_ins_loss"] = gmean(torch.abs(
+            t_ins - (tgt["domain"] > 0).float()[0]))
 
         # CLUB on every image's gt boxes, each row with its batch index
         b, g = src["gt_boxes"].shape[:2]

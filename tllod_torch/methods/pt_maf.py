@@ -37,6 +37,7 @@ from tllod_torch.methods.maf import (ImageDADRM, InstanceDAWeighted,
                                      instance_domain_loss)
 from tllod_torch.models.faster_rcnn import FasterRCNN
 from tllod_torch.models.rpn import rpn_probs
+from tllod_torch.parallel.dist import global_max, gsum
 
 LEVEL_WEIGHTS = (1.0, 1.0, 1.0)
 
@@ -48,8 +49,8 @@ def masked_image_nll(logits: torch.Tensor, domain: torch.Tensor,
     logp = F.log_softmax(logits, dim=-1)
     is_src = (domain > 0)[:, None, None]
     picked = torch.where(is_src, logp[..., 1], logp[..., 0])
-    denom = torch.clamp(mask.sum(), min=1.0)
-    return -(picked * mask).sum() / denom
+    denom = torch.clamp(gsum(mask), min=1.0)
+    return -gsum(picked * mask) / denom
 
 
 def fg_bg_maps(fg_prob: torch.Tensor, high: float, low: float):
@@ -59,11 +60,12 @@ def fg_bg_maps(fg_prob: torch.Tensor, high: float, low: float):
     (B, H, W), bg (B, H, W), ratio_f, ratio_b), the ratios over a detached
     total."""
     per_pixel = fg_prob.amax(dim=-1)
-    max_prob = per_pixel.max()
+    max_prob = global_max(per_pixel)
     f = (per_pixel > max_prob * high).float()
     b = (per_pixel < max_prob * low).float()
-    total = torch.clamp((f.sum() + b.sum()).detach(), min=1.0)
-    return f, b, f.sum() / total, b.sum() / total
+    f_sum, b_sum = gsum(f), gsum(b)
+    total = torch.clamp((f_sum + b_sum).detach(), min=1.0)
+    return f, b, f_sum / total, b_sum / total
 
 
 def gt_footprint_mask(gt_boxes: torch.Tensor, feat_h: int, feat_w: int,
@@ -88,13 +90,13 @@ def pt_maf_kd_loss(student_rpn, teacher_rpn, student_cls, teacher_cls,
     (1/(mask+1))·Σ_mask student·log(student/teacher) on the RPN ones."""
     eps = 1e-8
     pos = (rois_label > 0).float()
-    cls_kl = (pos[:, None] * student_cls
-              * torch.log((student_cls + eps) / (teacher_cls + eps))).sum()
-    cls_kl = cls_kl / (pos.sum() + 1.0)
+    cls_kl = gsum(pos[:, None] * student_cls
+                  * torch.log((student_cls + eps) / (teacher_cls + eps)))
+    cls_kl = cls_kl / (gsum(pos) + 1.0)
     m = mask[:, :, :, None, None]
-    rpn_kl = (m * student_rpn
-              * torch.log((student_rpn + eps) / (teacher_rpn + eps))).sum()
-    rpn_kl = rpn_kl / (mask.sum() + 1.0)
+    rpn_kl = gsum(m * student_rpn
+                  * torch.log((student_rpn + eps) / (teacher_rpn + eps)))
+    rpn_kl = rpn_kl / (gsum(mask) + 1.0)
     return cls_kl + rpn_kl
 
 

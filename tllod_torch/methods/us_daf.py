@@ -28,6 +28,7 @@ Total loss (``methods/US_DAF/US_DAF_train.py:428-431``):
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Dict, Optional
 
 import torch
@@ -42,6 +43,7 @@ from tllod_torch.models.backbones import dropout
 from tllod_torch.models.faster_rcnn import FasterRCNN
 from tllod_torch.models.layers import Conv2d, Linear, set_compute_dtype
 from tllod_torch.ops.grl import grad_reverse
+from tllod_torch.parallel.dist import gmean
 
 
 def _clip(p: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -116,7 +118,7 @@ def bce_margin_loss(probs: torch.Tensor, labels: torch.Tensor
             + (1.0 - labels) * torch.log(1.0 - p + eps))
     domain_w = (bce[:, :1] > 0.5).float()
     weight = torch.cat([domain_w, torch.ones_like(bce[:, 1:])], dim=1)
-    return (bce * weight).mean()
+    return gmean(bce * weight)
 
 
 def image_sigmoid_loss(prob: torch.Tensor, domain_value: float
@@ -124,8 +126,8 @@ def image_sigmoid_loss(prob: torch.Tensor, domain_value: float
     """Mean BCE of a sigmoid map to a constant domain label, clipped at
     1e-7 (``us_daf.py:141-146``), in the map's type as in JAX."""
     p = _clip(prob, 1e-7, 1.0 - 1e-7)
-    return -(torch.log(p) if domain_value > 0.5
-             else torch.log(1.0 - p)).mean()
+    return -gmean(torch.log(p) if domain_value > 0.5
+                  else torch.log(1.0 - p))
 
 
 def instance_scale_loss(probs: torch.Tensor, rois: torch.Tensor,
@@ -187,9 +189,11 @@ class USDAFModel(nn.Module):
                                       deterministic=deterministic, rng=rng)
         out = det.finish_head(out, s_samples, fc7_s)
 
-        ins_s, ins_t = self.ins_da(
-            torch.cat([fc7_s, fc7_t]), deterministic=deterministic,
-            rng=rng).split([fc7_s.shape[0], fc7_t.shape[0]])
+        sizes = [fc7_s.shape[0], fc7_t.shape[0]]
+        with rng.rows(sizes) if rng is not None else nullcontext():
+            ins = self.ins_da(torch.cat([fc7_s, fc7_t]),
+                              deterministic=deterministic, rng=rng)
+        ins_s, ins_t = ins.split(sizes)
         out.update({
             "da_img_loss": image_sigmoid_loss(self.img_da(s_feat), 1.0),
             "da_ins_loss": instance_scale_loss(ins_s, out["rois"], 1.0),

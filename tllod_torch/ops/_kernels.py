@@ -66,15 +66,29 @@ def _lib_path(name: str) -> str:
 
 
 def build_all(names: Iterable[str] = SOURCES) -> float:
-    """Compile every source not yet built, all at once; returns seconds."""
+    """Compile every source not yet built, all at once; returns seconds.
+    Processes that build at once (the ranks of a process group) take
+    turns on a file lock in the build directory, so one runs ``nvcc`` and
+    the others find its libraries."""
+    import fcntl
+
     t0 = time.time()
+    if all(os.path.exists(_lib_path(n)) for n in names):
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_missing(names)
+    return time.time() - t0
+
+
+def _build_missing(names: Iterable[str]) -> None:
     jobs = []
     try:
         for name in names:
             out = _lib_path(name)
             if os.path.exists(out):
                 continue
-            os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
             with open(out[:-3] + ".log", "w") as log:
                 proc = subprocess.Popen(
@@ -92,7 +106,6 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return time.time() - t0
 
 
 def build_log(name: str) -> str:

@@ -4,7 +4,9 @@
 Mask-based, fixed-shape forms of the reference's loss helpers: where the
 reference index-selects the kept entries, these take weighted means over
 masks, so a train step never waits on a data-dependent count. All three
-compute in float32.
+compute in float32. Every sum and mean is over the global batch: under a
+process group each rank's value is the global batch's, through
+:mod:`tllod_torch.parallel.dist` (without one, the plain expression).
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+
+from tllod_torch.parallel.dist import gmean, gsum
 
 
 def smooth_l1_loss(pred: torch.Tensor, targets: torch.Tensor,
@@ -30,7 +34,7 @@ def smooth_l1_loss(pred: torch.Tensor, targets: torch.Tensor,
     out = outside_weights * per_elem
     for d in sorted(reduce_dims, reverse=True):
         out = out.sum(dim=d)
-    return out.mean()
+    return gmean(out)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -43,8 +47,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
     nll = lse - torch.gather(logits, 1, labels[:, None].long())[:, 0]
     if weights is None:
-        return nll.mean()
-    return (nll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+        return gmean(nll)
+    return gsum(nll * weights) / torch.clamp(gsum(weights), min=1.0)
 
 
 def binary_cross_entropy(probs: torch.Tensor, labels: torch.Tensor,
@@ -60,5 +64,5 @@ def binary_cross_entropy(probs: torch.Tensor, labels: torch.Tensor,
                       torch.full_like(p, 1.0 - eps))
     loss = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))
     if weights is None:
-        return loss.mean()
-    return (loss * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+        return gmean(loss)
+    return gsum(loss * weights) / torch.clamp(gsum(weights), min=1.0)

@@ -16,10 +16,17 @@ back to raw image coordinates and runs per-class NMS for all B × C
 package), zero-padded RoIs are not masked: they reach per-class NMS as
 (0, 0, 0, 0) boxes with real scores. :func:`collect_detections` is the
 host-side numpy assembly of one image's ``all_boxes`` row.
+
+Under a process group (``--mGPUs``, :mod:`tllod_torch.parallel.dist`) a
+step on R ranks of B/R images computes the single-process B-image step:
+the draws are the global batch's (:class:`StepRandom`), every loss term is
+the global batch's value, and the gradients are averaged over the ranks
+before the clip and the update.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -29,6 +36,7 @@ from torch.utils import _pytree as pytree
 from tllod_torch.ops import _kernels
 from tllod_torch.ops.boxes import bbox_transform_inv, clip_boxes, fma
 from tllod_torch.ops.nms import nms_fixed_batched
+from tllod_torch.parallel import dist
 
 
 class StepRandom:
@@ -40,6 +48,16 @@ class StepRandom:
     step), or, with ``replay``, from that list in draw order (a test feeds
     it the JAX draws; a card-vs-CPU check feeds the CPU the card's
     ``drawn``). ``drawn`` keeps this step's draws, in order.
+
+    Under a process group of ``world`` ranks each draw is the global
+    batch's: a draw of leading dimension n (this rank's images, or rows)
+    draws (world·n, ...) and returns rank r's block, rows [r·n, (r+1)·n),
+    as a single process holding the global batch draws it. Where one draw
+    covers several sets of rows stacked (the fused box-head pass: source
+    rows, then target rows), :meth:`rows` names the sets, and each set is
+    taken from its own block of the global draw. A ``replicated`` draw (a
+    permutation over rows already gathered from every rank) is the same
+    on every rank. ``drawn`` and ``replay`` hold the global draws.
     """
 
     def __init__(self, seed: int, step: int, device,
@@ -50,6 +68,8 @@ class StepRandom:
         self.reseed(step)
         self.replay = None if replay is None else list(replay)
         self.drawn = []
+        self.rank, self.world = dist.rank(), dist.world()
+        self._sets: Optional[tuple] = None
 
     def reseed(self, step: int) -> None:
         """Seed the generator for ``step``, its offset back at 0. A CUDA
@@ -58,7 +78,30 @@ class StepRandom:
         self.generator.manual_seed((self.seed * 1_000_003 + step)
                                    % (2 ** 63))
 
-    def uniform(self, shape) -> torch.Tensor:
+    @contextmanager
+    def rows(self, sizes: Sequence[int]):
+        """Within this context a draw of ``sum(sizes)`` rows is taken set
+        by set from the global draw."""
+        prev, self._sets = self._sets, tuple(int(n) for n in sizes)
+        try:
+            yield
+        finally:
+            self._sets = prev
+
+    def uniform(self, shape, replicated: bool = False) -> torch.Tensor:
+        shape = tuple(shape)
+        if self.world == 1 or replicated:
+            return self._draw(shape)
+        sets = (self._sets if self._sets and sum(self._sets) == shape[0]
+                else (shape[0],))
+        u = self._draw((self.world * shape[0],) + shape[1:])
+        parts, start = [], 0
+        for n in sets:
+            parts.append(u[start + self.rank * n:start + (self.rank + 1) * n])
+            start += self.world * n
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def _draw(self, shape) -> torch.Tensor:
         if self.replay is None:
             u = torch.rand(tuple(shape), generator=self.generator,
                            device=self.device)
@@ -84,7 +127,7 @@ def step_metrics(out: Dict[str, Any], loss: torch.Tensor
                or k.endswith("loss_box") or k.startswith("dist")}
     metrics["loss"] = loss.detach()
     if out.get("rois_label") is not None:
-        metrics["fg_cnt"] = (out["rois_label"] > 0).sum()
+        metrics["fg_cnt"] = dist.gsum(out["rois_label"] > 0)
     return metrics
 
 
@@ -92,8 +135,10 @@ def train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
                batch_args: Sequence[Any], *, seed: int, step: int,
                rng: Optional[StepRandom] = None) -> Dict[str, torch.Tensor]:
     """One SGD step: ``model(*batch_args, training=True, rng=rng)`` →
-    ``loss_fn(out)`` → backward → ``optimizer.step()``. ``rng`` defaults to
-    the (seed, step) stream on the model's device."""
+    ``loss_fn(out)`` → backward → (under a process group, the gradients'
+    mean over the ranks) → ``optimizer.step()``. ``rng`` defaults to the
+    (seed, step) stream on the model's device. The metrics are the global
+    batch's on every rank: each loss term is, and ``fg_cnt`` is summed."""
     if rng is None:
         rng = StepRandom(seed, step, model.device)
     out, loss = _loss_and_grads(model, loss_fn, optimizer, batch_args, rng)
@@ -102,10 +147,13 @@ def train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
 
 
 def _loss_and_grads(model, loss_fn, optimizer, batch_args, rng):
-    optimizer.zero_grad()
+    # every parameter's, the frozen ones' too (outside the optimizer): each
+    # step's gradients are its own, as JAX's are
+    model.zero_grad()
     out = model(*batch_args, training=True, rng=rng)
     loss = loss_fn(out)
     loss.backward()
+    dist.reduce_gradients(model.parameters())
     return out, loss
 
 
@@ -172,6 +220,12 @@ class TrainStepMulti:
     once, at capture) and returns a dict of that step's tensors (its
     random draws, its selections) to be copied out after each step into
     ``kept``, for checks.
+
+    Under a process group each step's gradient all-reduce (and every
+    collective of its loss terms) is captured in the graph: NCCL
+    collectives can be captured, so the first eager step of a signature
+    also builds the communicator outside any capture. gloo collectives
+    cannot be, and a gloo group on the card raises.
     """
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
@@ -193,6 +247,11 @@ class TrainStepMulti:
             rows = [self._eager(args, step + i)
                     for i, args in enumerate(batches)]
         else:
+            if dist.active() and dist.backend() != "nccl":
+                raise NotImplementedError(
+                    f"--fuse_steps > 1 under a {dist.backend()} process "
+                    f"group on the card: its collectives cannot be captured "
+                    f"in a CUDA graph (NCCL's can)")
             if self.stream is None:
                 self.stream = torch.cuda.Stream()
             caller = torch.cuda.current_stream()
