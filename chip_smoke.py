@@ -198,6 +198,26 @@ Phases, each ending the run nonzero on failure:
    state: selections (NMS keep lists and counts, sampled RoIs and
    labels) equal, losses and gradients within twice the eager gap,
    parameters after the update equal on both ranks.
+   5i. ``[crop]``: ``POOLING_MODE='crop'`` and the RoICrop kernels. VGG16
+   eval over phase 2's images at eval batch 1 at the shipped vgg16.yml
+   crop (G = 7, no max) and at ``Config()``'s (G = 14 and the 2x2 max),
+   timed as phase 2: one crop launch an image and no RoIAlign, busy, every
+   image's call held to the plain version. Phase 5's ``train_phase`` for
+   DAF at ``Config()``'s crop (one card-vs-CPU pair; the crop forward and
+   backward once a step at each site, no gradient copy; each site's crop
+   held and timed; ``fused_phase``). DAF at align and at crop in turns on
+   one model: ms/step, and each mode's step traced cold and warm (busy,
+   device events). ``train_phase`` for US-DAF and phase 4b's res101 eval,
+   both at res101.yml's crop. Then the kernel sets: ``CROP_SETS`` (each
+   main-path shape) at both modes, float32 and bfloat16, forward
+   ``torch.equal`` to the plain version and backward within
+   ``_grad_close`` in both gradient layouts, each timed (device ms from
+   CUDA-graph replays, the backward's zero fill included; events; plain;
+   the library yardsticks ``F.grid_sample`` + ``F.max_pool2d`` on one
+   stacked grid and on the map expanded to the RoIs; bound), each with
+   the launches of the run at its shape and mode; and edge RoIs past the
+   map, zero-width, -height and -size RoIs (2- to 4-way ties of the max)
+   and a batch-2 map, checked.
    Prints one ``{"kernels": [...]}`` line with times and bounds of every
    kernel at every shape.
 6. Prints the card's ``nvidia-smi`` name and power limit, then the last
@@ -472,8 +492,6 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     # ---- 2. main path ----
-    from tllod_torch.data.evaluate import evaluate_detections_roidb
-    from tllod_torch.eval_engine import detect_chunks
     from tllod_torch.models.faster_rcnn import FasterRCNN
 
     cfg = cfg_from_list(Config(), VGG16_CITYSCAPE)
@@ -484,49 +502,11 @@ def main() -> int:
         f"{len(ims)} images {ims.shape[1]}x{ims.shape[2]}, TEST "
         f"{cfg.TEST.RPN_PRE_NMS_TOP_N}->{cfg.TEST.RPN_POST_NMS_TOP_N} rois")
 
-    def detect(bs, n=len(ims)):
-        return detect_chunks(model, chunks_of(ims[:n], info[:n], bs), cfg,
-                             num_classes=len(CLASSES))
-
-    for bs in (1, 4):          # warm-up: cuDNN plans, allocator, clocks
-        detect(bs)
-    _kernels.reset_launches()
-    per_image_ms = {}
-    results = {}
-    for bs in (1, 4):
-        times = []
-        for _ in range(REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            results[bs] = detect(bs)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3 / len(ims))
-        per_image_ms[bs] = float(np.median(times))
-    launches = dict(_kernels.launches)
-    log(f"[main] launches {launches}")
+    per_image_ms, _, launches, _ = time_eval(model, cfg, ims, info, roidb,
+                                             CLASSES, (1, 4), "main")
     for name in ("roi_align_avg", "nms"):
         if launches.get(name, 0) < 1:
             raise RuntimeError(f"main path never launched kernel {name}")
-    for bs, ms in per_image_ms.items():
-        log(f"[main] eval_bs {bs}: {ms:.3f} ms/image (median of {REPS} "
-            f"passes)")
-
-    for bs, res in results.items():
-        n_dets = 0
-        for per_class in res.values():
-            for dets in per_class:
-                if dets.shape[1:] != (5,) or not np.isfinite(dets).all():
-                    raise RuntimeError(f"non-finite or mis-shaped dets at "
-                                       f"bs {bs}")
-                n_dets += len(dets)
-        all_boxes = [[res[i][c] for i in range(len(ims))]
-                     for c in range(len(CLASSES))]
-        aps = evaluate_detections_roidb(SynthDataset(CLASSES), roidb,
-                                        all_boxes)
-        if not np.isfinite(aps["mAP"]):
-            raise RuntimeError("mAP is not finite")
-        log(f"[main] eval_bs {bs}: {n_dets} detections, VOC07 mAP "
-            f"{aps['mAP']:.4f} (random weights)")
 
     os.makedirs(args.out, exist_ok=True)
     profile_main_path(model, ims, info, args.out)
@@ -598,6 +578,9 @@ def main() -> int:
     par_kernels, parallel = parallel_phase(cfg, args.seed, args.out,
                                            summaries)
     kernels += par_kernels
+    # ---- 5i. [crop]: POOLING_MODE='crop', the RoICrop kernels ----
+    crop_kernels, crop = crop_phase(args.seed, ims, info, roidb, args.out)
+    kernels += crop_kernels
 
     log("[fused] summary: " + "; ".join(
         f"{name} eager {f['eager_ms_median']:.3f} graph "
@@ -628,7 +611,7 @@ def main() -> int:
                    "faster_rcnn": supervised, "idf_eval": idf_eval,
                    "nms_adversarial": adversarial, "bf16": bf16,
                    "optim": optim, "overfit": overfit,
-                   "parallel": parallel}, f, indent=1)
+                   "parallel": parallel, "crop": crop}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
 
     # ---- 6. card ----
@@ -728,16 +711,17 @@ def check_reference(model, cfg, seed: int) -> None:
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
 
 
-def _capture(model, ims, info, head=None):
-    """Run the main path once with the kernel wrappers wrapped to record
-    their inputs; returns the recorded calls by site. ``head`` is the box
-    head whose flatten is checked (default ``model.head``)."""
+def _capture(model, ims, info, head=None, pool_op="roi_align_avg"):
+    """Run the main path once, the images in one chunk, with the kernel
+    wrappers wrapped to record their inputs; returns the recorded calls by
+    site (``pool``: the pooling op's, ``pool_op``). ``head`` is the box head
+    whose flatten is checked (default ``model.head``)."""
     import torch
     import tllod_torch.models.faster_rcnn as frcnn
     import tllod_torch.models.rpn as rpn
     import tllod_torch.train as train
 
-    calls = {"roi_align": [], "rpn_nms": [], "cls_nms": []}
+    calls = {"pool": [], "rpn_nms": [], "cls_nms": []}
 
     def recorder(site, fn):
         def wrapped(*a, **kw):
@@ -745,9 +729,9 @@ def _capture(model, ims, info, head=None):
             return fn(*a, **kw)
         return wrapped
 
-    saved = (frcnn.roi_align_avg, rpn.nms_fixed_batched,
+    saved = (getattr(frcnn, pool_op), rpn.nms_fixed_batched,
              train.nms_fixed_batched)
-    frcnn.roi_align_avg = recorder("roi_align", saved[0])
+    setattr(frcnn, pool_op, recorder("pool", saved[0]))
     rpn.nms_fixed_batched = recorder("rpn_nms", saved[1])
     train.nms_fixed_batched = recorder("cls_nms", saved[2])
     hook = (head or model.head).register_forward_pre_hook(_flatten_is_view)
@@ -757,8 +741,8 @@ def _capture(model, ims, info, head=None):
             detect_chunks(model, chunks_of(ims, info, len(ims)), model.cfg,
                           num_classes=model.num_classes)
     finally:
-        frcnn.roi_align_avg, rpn.nms_fixed_batched, \
-            train.nms_fixed_batched = saved
+        setattr(frcnn, pool_op, saved[0])
+        rpn.nms_fixed_batched, train.nms_fixed_batched = saved[1:]
         hook.remove()
     return calls
 
@@ -855,7 +839,11 @@ def _entry(name, shape, launches, err, k_ms, p_ms, nbytes, ops, **extra):
            "roi_pool": ("tllod_torch/csrc/roi_pool.cu",
                         "tllod_tpu/ops/roi_pool.py:44"),
            "roi_pool_backward": ("tllod_torch/csrc/roi_pool.cu",
-                                 "tllod_tpu/ops/roi_pool.py:44")}[name]
+                                 "tllod_tpu/ops/roi_pool.py:44"),
+           "roi_crop": ("tllod_torch/csrc/roi_crop.cu",
+                        "tllod_tpu/ops/roi_crop.py:85"),
+           "roi_crop_backward": ("tllod_torch/csrc/roi_crop.cu",
+                                 "tllod_tpu/ops/roi_crop.py:85")}[name]
     return {"name": name, "route": "cuda", "source": src[0],
             "replaces": src[1], "shape": shape, "launches": launches,
             "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
@@ -864,22 +852,44 @@ def _entry(name, shape, launches, err, k_ms, p_ms, nbytes, ops, **extra):
             "library_ms": None, **extra}
 
 
-def _forward_check(label, feat, rois, kw):
-    """The forward kernel against its plain version, bit-equal
-    (``torch.equal``) in float32 and in bfloat16: both sample and average
-    in float32 with the same roundings and round a bfloat16 output once.
-    Returns the kernel's output and the max error."""
-    import torch
-    from tllod_torch.ops.roi_align import roi_align_avg, roi_align_avg_plain
+def _pool_op(op):
+    """The RoI pooling op ``op`` (``roi_align_avg`` or ``roi_crop``): its
+    wrapper, its plain version, its backward wrapper called as (output
+    gradient, map, RoIs, kw) and the name of its gradient-copy count."""
+    if op == "roi_crop":
+        from tllod_torch.ops.roi_crop import (roi_crop, roi_crop_backward,
+                                              roi_crop_plain)
+        return (roi_crop, roi_crop_plain,
+                lambda g, f, rois, kw: roi_crop_backward(g, f, rois, **kw),
+                "roi_crop_grad_copy")
+    from tllod_torch.ops.roi_align import (roi_align_avg,
+                                           roi_align_avg_backward,
+                                           roi_align_avg_plain)
+    return (roi_align_avg, roi_align_avg_plain,
+            lambda g, f, rois, kw: roi_align_avg_backward(
+                g, rois, tuple(f.shape), **kw),
+            "roi_align_avg_grad_copy")
 
-    got = roi_align_avg(feat, rois, **kw)
-    want = roi_align_avg_plain(feat, rois, **kw)
+
+def _forward_check(label, feat, rois, kw, op="roi_align_avg"):
+    """The forward kernel of ``op`` against its plain version, bit-equal
+    (``torch.equal``) in float32 and in bfloat16: both sample (and average
+    or take the max) in float32 with the same roundings and round a
+    bfloat16 output once (RoICrop's stays float32, as JAX's); and its (R,
+    P, P, C) output the view of an (R, C, P, P) tensor, so fc6 flattens it
+    with no copy. Returns the kernel's output and the max error."""
+    import torch
+
+    fwd, plain, _, _ = _pool_op(op)
+    got = fwd(feat, rois, **kw)
+    want = plain(feat, rois, **kw)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item() if got.numel() \
         else 0.0
     if got.shape != want.shape or not torch.equal(got, want):
-        raise RuntimeError(f"roi_align_avg {label} {feat.dtype}: max err "
-                           f"{err}")
+        raise RuntimeError(f"{op} {label} {feat.dtype}: max err {err}")
+    if not got.permute(0, 3, 1, 2).is_contiguous():
+        raise RuntimeError(f"{op} {label}: not an (R, C, P, P) tensor")
     return got, err
 
 
@@ -987,34 +997,39 @@ def _grad_close(got, want, dtype):
             err.max().item() if err.numel() else 0.0, scale)
 
 
-def _backward_check(label, feat_shape, rois, grad, kw, dtype):
-    """The backward kernel against autograd through the plain version on a
-    map of ``dtype``, with the output gradient given (R, P, P, C)- and
-    (R, C, P, P)-contiguous (``_grad_close``: float32 within 1e-5, bfloat16
-    within a spacing of the plain version's bfloat16 map gradient, which
-    sums in float32 and rounds once, as the wrapper does). Neither layout
-    may be copied. Returns (max error, max |want|)."""
+def _backward_check(label, feat, rois, grad, kw, dtype, op="roi_align_avg"):
+    """The backward kernel of ``op`` against autograd through the plain
+    version on the map ``feat`` in ``dtype`` (RoICrop's maxima route the
+    gradient; RoIAlign's does not depend on the map), with the output
+    gradient given (R, P, P, C)- and (R, C, P, P)-contiguous
+    (``_grad_close``: float32 within 1e-5, bfloat16 within a spacing of the
+    plain version's bfloat16 map gradient, which sums in float32 and
+    rounds once, as the wrapper does). Neither layout may be copied.
+    Returns (max error, max |want|)."""
     import torch
     from tllod_torch.ops import _kernels
-    from tllod_torch.ops.roi_align import roi_align_avg_backward
 
-    g = grad.to(dtype).contiguous()
-    out, f = _plain_forward(feat_shape, rois, kw, dtype)
+    _, plain, bwd, copy_key = _pool_op(op)
+    # a copy: ``feat`` may be an inference tensor (``_capture``'s)
+    f = feat.detach().to(dtype, copy=True).contiguous().requires_grad_(True)
+    out = plain(f, rois, **kw)
+    g = grad.to(out.dtype).contiguous()
     (want,) = torch.autograd.grad(out, f, g)
-    copies = _kernels.launches["roi_align_avg_grad_copy"]
+    f = f.detach()
+    copies = _kernels.launches[copy_key]
     err, scale = 0.0, 0.0
     for layout, gl in (("rppc", g),
                        ("rcpp", g.permute(0, 3, 1, 2).contiguous()
                         .permute(0, 2, 3, 1))):
-        got = roi_align_avg_backward(gl, rois, feat_shape, **kw).to(dtype)
+        got = bwd(gl, f, rois, kw).to(dtype)
         torch.cuda.synchronize()
         ok, e, scale = _grad_close(got, want, dtype)
         err = max(err, e)
         if not ok:
-            raise RuntimeError(f"roi_align_avg_backward {label} {dtype} "
-                               f"{layout}: max err {e} (max |want| {scale})")
-    if _kernels.launches["roi_align_avg_grad_copy"] != copies:
-        raise RuntimeError("roi_align_avg_backward copied an accepted layout")
+            raise RuntimeError(f"{op}_backward {label} {dtype} {layout}: "
+                               f"max err {e} (max |want| {scale})")
+    if _kernels.launches[copy_key] != copies:
+        raise RuntimeError(f"{op}_backward copied an accepted layout")
     return err, scale
 
 
@@ -1045,7 +1060,7 @@ def _roi_align_sets(feat, main_rois, kw, prefix=""):
         g = torch.randn((rois.shape[0], p, p, feat.shape[-1]),
                         device=feat.device, generator=rng)
         for dtype in (torch.float32, torch.bfloat16):
-            err, scale = _backward_check(label, tuple(feat.shape), rois, g,
+            err, scale = _backward_check(label, feat, rois, g,
                                          skw, dtype)
             rec[f"bwd_max_abs_err_{str(dtype)[6:]}"] = err
             rec["bwd_max_abs_want"] = scale
@@ -1620,7 +1635,7 @@ def kernel_parity(model, ims, info, launches):
     entries = []
     for bs in (1, 4):
         calls = _capture(model, ims[:bs], info[:bs])
-        (feat, rois), kw = calls["roi_align"][0]
+        (feat, rois), kw = calls["pool"][0]
         entries.append(_roi_align_entry(feat, rois, kw, torch.float32, n_roi))
         if bs == 1:
             entries[-1]["sets"] = _roi_align_sets(feat, rois, kw)
@@ -1642,110 +1657,175 @@ def kernel_parity(model, ims, info, launches):
 RES_EVAL_IMAGES = 4          # 600x1200 images of the res101 eval phase
 
 
-def _profile_window(fn, label, trace_path):
-    """``torch.profiler`` over one call of ``fn`` after a warm-up one: the
-    device breakdown of ``_device_breakdown``; returns (busy ms, wall ms, ms
-    by kind)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+TRACE_GUARD_S = 0.05         # idle seconds around a warm trace's call
 
-    fn()
+
+def _traced(fn, record_shapes=False, warm=True):
+    """``torch.profiler`` over one call of ``fn``. With ``warm``, the tracer
+    runs through a call of ``fn`` before it (the profiler's warm-up step,
+    its events dropped) and the recorded call has TRACE_GUARD_S of idle
+    card on each side. A trace started cold, the call at its start, can
+    miss the first kernels of its window: late in this script a DAF
+    step's first 43 of 1145 (its forward up to conv4_2, 5.4 ms of busy),
+    early in it a few; a warm-up without the guard once missed 8
+    (``pool_modes_in_turns`` traces both ways).
+    Returns (profile, wall ms of the recorded call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
-                 ) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=record_shapes,
+                 schedule=schedule(wait=0, warmup=1, active=1) if warm
+                 else None) as prof:
+        if warm:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(TRACE_GUARD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        if warm:
+            time.sleep(TRACE_GUARD_S)
+    return prof, wall_ms
+
+
+def _profile_window(fn, label, trace_path):
+    """One traced call of ``fn`` (``_traced``): the device breakdown of
+    ``_device_breakdown``; returns (busy ms, wall ms, ms by kind)."""
+    prof, wall_ms = _traced(fn)
     busy, _, kinds = _device_breakdown(prof, wall_ms, label, trace_path)
     return busy, wall_ms, kinds
 
 
-def resnet_eval_phase(seed, out_dir):
+def resnet_eval_phase(seed, out_dir, crop=False):
     """Phase 4b: full-depth ResNet-101 Faster R-CNN (16 classes,
-    ``cfgs/res101.yml``, random weights from ``seed``, JAX's zero ``conv3``,
-    the stem's statistics from the first image: ``calibrate_stem``)
-    through ``eval_engine.detect_chunks`` at eval batch 1 on
-    RES_EVAL_IMAGES 600x1200 images, TEST 6000 -> 300: ms/image (the
-    median of REPS passes after a warm-up, TF32 convolutions as cuDNN's
-    default), the launches (RoIAlignAvg and NMS must launch), finite
-    detections and VOC AP, a profile of one pass over the images; then
-    RoIAlignAvg on the 1024-channel map (the
-    image's RoIs, then phase 4's edge and regime sets and P = 3 and 15 on
-    that map) and both NMS problems of one image held to their plain
-    versions (TF32 off). Returns (kernel entries, summary)."""
+    ``cfgs/res101.yml``, with ``crop`` at ``POOLING_MODE='crop'``, random
+    weights from ``seed``, JAX's zero ``conv3``, the stem's statistics from
+    the first image: ``calibrate_stem``) through ``time_eval`` at eval
+    batch 1 on RES_EVAL_IMAGES 600x1200 images, TEST 6000 -> 300, TF32
+    convolutions as cuDNN's default: the pooling op once an image and NMS,
+    nothing else, a profile of one pass over the images; then (TF32 off)
+    the pooling kernels on the 1024-channel map, both NMS problems of one
+    image held to their plain versions, at align phase 4's edge and regime
+    sets and P = 3 and 15 on that map, at crop every image's crop call
+    held. Returns (kernel entries, summary)."""
     import torch
     from tllod_torch.config import Config, cfg_from_list
-    from tllod_torch.data.evaluate import evaluate_detections_roidb
     from tllod_torch.eval_engine import detect_chunks
     from tllod_torch.models.faster_rcnn import FasterRCNN
-    from tllod_torch.ops import _kernels
 
-    cfg = cfg_from_list(Config(), RES101_VOC_CLIPART)
+    cfg = cfg_from_list(Config(), RES101_VOC_CLIPART
+                        + (["POOLING_MODE", "crop"] if crop else []))
+    pool_op = "roi_crop" if crop else "roi_align_avg"
+    tag = "crop-res101" if crop else "res101"
     nc = len(VOC_CLIPART_CLASSES)
     model = FasterRCNN(nc, cfg, "res101", device="cuda", seed=seed)
     ims, info, roidb = make_images(RES_EVAL_IMAGES, seed + 2,
                                    cfg.PIXEL_MEANS)
     calibrate_stem(model, torch.from_numpy(ims[:1]).cuda())
-    log(f"[res101] res101 {sum(p.numel() for p in model.parameters())} "
+    log(f"[{tag}] res101 {sum(p.numel() for p in model.parameters())} "
         f"params, {len(ims)} images {ims.shape[1]}x{ims.shape[2]}, eval_bs "
         f"1, TEST {cfg.TEST.RPN_PRE_NMS_TOP_N}->"
-        f"{cfg.TEST.RPN_POST_NMS_TOP_N} rois")
-
-    def detect():
-        return detect_chunks(model, chunks_of(ims, info, 1), cfg,
-                             num_classes=nc)
-
+        f"{cfg.TEST.RPN_POST_NMS_TOP_N} rois, POOLING_MODE "
+        f"{cfg.POOLING_MODE}")
     torch.backends.cudnn.allow_tf32 = True          # the defaults, as eval
-    detect()
-    torch.cuda.synchronize()
-    _kernels.reset_launches()
-    times = []
-    for _ in range(REPS):
-        t0 = time.perf_counter()
-        res = detect()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3 / len(ims))
-    launches = dict(_kernels.launches)
-    log(f"[res101] launches {launches}")
-    for name in ("roi_align_avg", "nms"):
-        if launches.get(name, 0) < 1:
-            raise RuntimeError(f"res101 eval never launched kernel {name}")
-    n_dets = 0
-    for per_class in res.values():
-        for dets in per_class:
-            if dets.shape[1:] != (5,) or not np.isfinite(dets).all():
-                raise RuntimeError("res101 eval: non-finite or mis-shaped "
-                                   "detections")
-            n_dets += len(dets)
-    aps = evaluate_detections_roidb(
-        SynthDataset(VOC_CLIPART_CLASSES), roidb,
-        [[res[i][c] for i in range(len(ims))] for c in range(nc)])
-    if not np.isfinite(aps["mAP"]):
-        raise RuntimeError("res101 eval: mAP is not finite")
-    ms = float(np.median(times))
-    log(f"[res101] eval_bs 1: {ms:.3f} ms/image (median of {REPS} passes), "
-        f"{n_dets} detections, VOC07 mAP {aps['mAP']:.4f} (random weights)")
+    per_image, passes, launches, quality = time_eval(
+        model, cfg, ims, info, roidb, VOC_CLIPART_CLASSES, (1,), tag)
+    if (launches.get(pool_op, 0) != len(ims) * REPS
+            or launches.get("nms", 0) < 1
+            or set(k for k, n in launches.items() if n) != {pool_op, "nms"}):
+        raise RuntimeError(f"res101 eval launched {launches}, {pool_op} "
+                           f"{len(ims) * REPS} and nms expected")
     busy, wall, kinds = _profile_window(
-        detect, f"res101 eval_bs 1, {len(ims)} images",
-        os.path.join(out_dir, "chip_smoke_res101_eval_trace.json"))
+        lambda: detect_chunks(model, chunks_of(ims, info, 1), cfg,
+                              num_classes=nc),
+        f"{tag} eval_bs 1, {len(ims)} images",
+        os.path.join(out_dir, f"chip_smoke_{tag}_eval_trace.json"))
 
     torch.backends.cudnn.allow_tf32 = False
-    calls = _capture(model, ims[:1], info[:1])
-    (feat, rois), kw = calls["roi_align"][0]
-    entries = [_roi_align_entry(feat, rois, kw, torch.float32,
-                                launches["roi_align_avg"],
-                                label="res101 eval")]
-    entries[0]["sets"] = _roi_align_sets(feat, rois, kw, prefix="res101 ")
-    for label, site in (("res101 proposal", "rpn_nms"),
-                        ("res101 postprocess", "cls_nms")):
-        (boxes, scores), nkw = calls[site][0]
-        entries.append(_nms_entry(label, boxes, scores, nkw,
-                                  launches["nms"]))
-    return entries, {"ms_per_image": ms, "pass_ms_per_image": times,
-                     "launches": launches, "detections": n_dets,
-                     "mAP": aps["mAP"], "busy_ms": busy,
-                     "profiled_wall_ms": wall, "busy_ms_by_kind": kinds}
+    calls = [_capture(model, ims[i:i + 1], info[i:i + 1], pool_op=pool_op)
+             for i in range(len(ims) if crop else 1)]
+    (feat, rois), kw = calls[0]["pool"][0]
+    if crop:
+        for i, c in enumerate(calls[1:], 1):
+            (f, r), k = c["pool"][0]
+            _forward_check(f"res101 eval image {i}", f, r, k, op=pool_op)
+        entries = _crop_entries("res101 eval", feat, rois, kw, launches,
+                                dtypes=(torch.float32,), tag=tag)
+    else:
+        entries = [_roi_align_entry(feat, rois, kw, torch.float32,
+                                    launches["roi_align_avg"],
+                                    label="res101 eval")]
+        entries[0]["sets"] = _roi_align_sets(feat, rois, kw,
+                                             prefix="res101 ")
+        for label, site in (("res101 proposal", "rpn_nms"),
+                            ("res101 postprocess", "cls_nms")):
+            (boxes, scores), nkw = calls[0][site][0]
+            entries.append(_nms_entry(label, boxes, scores, nkw,
+                                      launches["nms"]))
+    n_dets, m_ap = quality[1]
+    return entries, {"ms_per_image": per_image[1],
+                     "pass_ms_per_image": passes[1], "launches": launches,
+                     "detections": n_dets, "mAP": m_ap, "busy_ms": busy,
+                     "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
+                     "calls_held": len(calls)}
+
+
+def time_eval(model, cfg, ims, info, roidb, classes, batch_sizes, tag):
+    """``eval_engine.detect_chunks`` over the images at each eval batch
+    size of ``batch_sizes``: a warm-up pass at each (cuDNN plans,
+    allocator, clocks), then REPS timed passes at each between
+    synchronizes; finite (N, 5) detections and a finite VOC07 mAP (random
+    weights) at each. Returns ({bs: median ms/image}, {bs: each pass's
+    ms/image}, the launches of the timed passes, {bs: (detections,
+    mAP)})."""
+    import torch
+    from tllod_torch.data.evaluate import evaluate_detections_roidb
+    from tllod_torch.eval_engine import detect_chunks
+    from tllod_torch.ops import _kernels
+
+    def detect(bs):
+        return detect_chunks(model, chunks_of(ims, info, bs), cfg,
+                             num_classes=len(classes))
+
+    for bs in batch_sizes:
+        detect(bs)
+    _kernels.reset_launches()
+    per_image, passes, results = {}, {}, {}
+    for bs in batch_sizes:
+        passes[bs] = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[bs] = detect(bs)
+            torch.cuda.synchronize()
+            passes[bs].append((time.perf_counter() - t0) * 1e3 / len(ims))
+        per_image[bs] = float(np.median(passes[bs]))
+    launches = dict(_kernels.launches)
+    log(f"[{tag}] launches {launches}")
+    quality = {}
+    for bs, res in results.items():
+        n_dets = 0
+        for per_class in res.values():
+            for dets in per_class:
+                if dets.shape[1:] != (5,) or not np.isfinite(dets).all():
+                    raise RuntimeError(f"{tag}: non-finite or mis-shaped "
+                                       f"detections at eval_bs {bs}")
+                n_dets += len(dets)
+        aps = evaluate_detections_roidb(
+            SynthDataset(classes), roidb,
+            [[res[i][c] for i in range(len(ims))]
+             for c in range(len(classes))])
+        if not np.isfinite(aps["mAP"]):
+            raise RuntimeError(f"{tag}: mAP is not finite")
+        quality[bs] = (n_dets, aps["mAP"])
+        log(f"[{tag}] eval_bs {bs}: {per_image[bs]:.3f} ms/image (median "
+            f"of {REPS} passes of {len(ims)}), {n_dets} detections, VOC07 "
+            f"mAP {aps['mAP']:.4f} (random weights)")
+    return per_image, passes, launches, quality
 
 
 def profile_main_path(model, ims, info, out_dir):
@@ -1760,16 +1840,15 @@ def profile_main_path(model, ims, info, out_dir):
         f"eval_bs {bs}", os.path.join(out_dir, "chip_smoke_trace.json"))
 
 
-def _device_breakdown(prof, wall_ms, label, trace_path):
-    """Print the device's busy share of a profiled window and its time by
-    kernel name and by kind; write the chrome trace. Returns (busy_ms, top
-    rows, ms by kind)."""
+def _device_events(prof):
+    """A profiled window's device-side events (kernels, copies, sets; the
+    host-side aten rows would count the same time twice, and a
+    record_function range on the device timeline, torch.optim's
+    "Optimizer.step#SGD.step", spans kernels and the gaps between them):
+    (busy ms, the union of their intervals; their count; {name: (ms,
+    count)} ranked by ms; ms by kind)."""
     import torch
 
-    # device-side events only (kernels, copies, sets): their durations, by
-    # name; the host-side aten rows would count the same time twice, and a
-    # record_function range on the device timeline (torch.optim's
-    # "Optimizer.step#SGD.step") spans kernels and the gaps between them
     by_name: dict = {}
     spans = []
     for ev in prof.events():
@@ -1785,21 +1864,30 @@ def _device_breakdown(prof, wall_ms, label, trace_path):
         if b > end:
             busy += (b - max(a, end)) / 1e3
             end = b
-    log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
-        f"{len(spans)} device events")
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    ranked = dict(sorted(by_name.items(), key=lambda kv: -kv[1][0]))
     kinds: dict = {}
-    for name, (ms, _) in ranked:
+    for name, (ms, _) in ranked.items():
         kind = kernel_kind(name)
         kinds[kind] = kinds.get(kind, 0.0) + ms
+    return busy, len(spans), ranked, kinds
+
+
+def _device_breakdown(prof, wall_ms, label, trace_path):
+    """Print the device's busy share of a profiled window and its time by
+    kernel name and by kind (``_device_events``); write the chrome trace.
+    Returns (busy_ms, top rows, ms by kind)."""
+    busy, n_events, ranked, kinds = _device_events(prof)
+    log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"{n_events} device events")
+    ranked = list(ranked.items())
     log(f"[profile] {label} by kind: " + ", ".join(
         f"{k} {ms:.3f} ms ({100 * ms / max(busy, 1e-9):.1f}%)"
         for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])))
     # the top 15, and the hand kernels wherever they rank
     top = ranked[:15] + [kv for kv in ranked[15:]
                          if "nms_" in kv[0] or "roi_align" in kv[0]
-                         or "roi_pool" in kv[0]]
+                         or "roi_pool" in kv[0] or "roi_crop" in kv[0]]
     for name, (ms, n) in top:
         log(f"[profile] {ms:9.3f} ms {n:5d}x {name[:90]}")
     prof.export_chrome_trace(trace_path)
@@ -1815,6 +1903,7 @@ def kernel_kind(name: str) -> str:
     n = name.lower()
     for kind, keys in (("nms", ("nms_",)), ("roi_align", ("roi_align",)),
                        ("roi_pool", ("roi_pool",)),
+                       ("roi_crop", ("roi_crop",)),
                        ("conv", ("implicit_gemm", "conv", "wgrad", "dgrad",
                                  "fprop")),
                        ("gemm", ("gemm", "nvjet")),
@@ -2097,11 +2186,13 @@ def phase_optimizer(spec, cfg, model, optimizer="sgd"):
 
 def train_phase(spec, cfg, seed, out_dir):
     """Full-width train steps of the method ``spec`` at ``spec.train_hw``
-    through ``train_step``; both RoIAlignAvg kernels and the proposal NMS
-    held to their plain versions on the step's own tensors; one step card
-    vs CPU on each of ``spec.ref_pairs`` noise pairs; a profile of one
-    step. ``cfg`` is phase 2's, unless ``spec.cfg_pairs`` gives the
-    method's own. Returns (kernel entries, summary)."""
+    through ``train_step``; both kernels of the config's pooling op
+    (RoIAlignAvg's, or RoICrop's at ``POOLING_MODE='crop'``) and the
+    proposal NMS held to their plain versions on the step's own tensors;
+    one step card vs CPU on each of ``spec.ref_pairs`` noise pairs; a
+    profile of one step; ``fused_phase``. ``cfg`` is phase 2's, unless
+    ``spec.cfg_pairs`` gives the method's own. Returns (kernel entries,
+    summary)."""
     import torch
     from tllod_torch.config import Config, cfg_from_list
     from tllod_torch.ops import _kernels
@@ -2109,8 +2200,13 @@ def train_phase(spec, cfg, seed, out_dir):
 
     if spec.cfg_pairs:
         cfg = cfg_from_list(Config(), spec.cfg_pairs)
+    pool_op = {"align": "roi_align_avg", "crop": "roi_crop"}[
+        cfg.POOLING_MODE]
     dev = torch.device("cuda")
     tag = spec.tag
+    # what the run holds before the phase (earlier phases' caches), so the
+    # step's own peak is told apart
+    held = torch.cuda.memory_allocated() / 2 ** 30
     model, extra = spec.build(cfg, seed, dev)
     nc = len(spec.classes)
     src = spec.add_fields(make_train_batch(*spec.train_hw, 1, seed + 10,
@@ -2136,6 +2232,8 @@ def train_phase(spec, cfg, seed, out_dir):
               f"{t_post}")
     log(f"[{tag}] {spec.name.upper().replace('_', '-')} {spec.net} "
         f"{n_params} params ({n_train} trained), {nc} classes, "
+        f"POOLING_MODE {cfg.POOLING_MODE}"
+        + (f" {_crop_kw(cfg)}" if pool_op == "roi_crop" else "") + ", "
         f"{'2 source views' if spec.supervised_pair else '1+1 images'} "
         f"{spec.train_hw[0]}x{spec.train_hw[1]}, {TRAIN_GT} gt "
         f"each, lr {spec.lr}, decay {cfg.TRAIN.WEIGHT_DECAY}, {second}"
@@ -2174,28 +2272,18 @@ def train_phase(spec, cfg, seed, out_dir):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[{tag}] launches {launches}")
     # each kernel exactly once a step at each of its sites (the teacher's
-    # RoIAlignAvg has no backward)
-    per_step = {"roi_align_avg": len(spec.roi_sites),
-                "roi_align_avg_backward": sum(site != "teacher" for site
-                                              in spec.roi_sites),
-                "nms": len(spec.nms_sites)}
-    for name, n in per_step.items():
-        if launches.get(name, 0) != n * TRAIN_STEPS:
-            raise RuntimeError(f"{spec.name} train path launched {name} "
-                               f"{launches.get(name, 0)} times in "
-                               f"{TRAIN_STEPS} steps, {n} a step expected")
-    if launches.get("roi_align_avg_grad_copy", 0):
-        raise RuntimeError(f"the RoIAlignAvg backward copied the output "
-                           f"gradient on the {spec.name} train path")
-    for name in ("roi_pool", "roi_pool_backward"):
-        want = len(spec.pool_sites) * TRAIN_STEPS
-        if launches.get(name, 0) != want:
-            raise RuntimeError(f"{spec.name} train path launched {name} "
-                               f"{launches.get(name, 0)} times in "
-                               f"{TRAIN_STEPS} steps, {want} expected")
-    if launches.get("roi_pool_grad_copy", 0):
-        raise RuntimeError(f"the RoIPool backward copied the output "
-                           f"gradient on the {spec.name} train path")
+    # pooling has no backward), RoIPool at PA-ATF's; no other kernel and
+    # no gradient-layout copy
+    per_step = {pool_op: len(spec.roi_sites),
+                f"{pool_op}_backward": sum(site != "teacher" for site
+                                           in spec.roi_sites),
+                "nms": len(spec.nms_sites),
+                "roi_pool": len(spec.pool_sites),
+                "roi_pool_backward": len(spec.pool_sites)}
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items() if n}
+    if {k: n for k, n in launches.items() if n} != want:
+        raise RuntimeError(f"{spec.name} train path launched {launches} in "
+                           f"{TRAIN_STEPS} steps, {want} expected")
     for i, m in enumerate(metrics):
         vals = {k: float(v) for k, v in m.items()}
         if set(vals) != set(spec.loss_keys) | {"loss", "fg_cnt"}:
@@ -2213,23 +2301,25 @@ def train_phase(spec, cfg, seed, out_dir):
     ms = float(np.median(times))
     log(f"[{tag}] {ms:.3f} ms/step (median of {TRAIN_STEPS} steps), "
         f"{2000.0 / ms:.2f} images/s (2 per step), peak memory "
-        f"{peak:.2f} GiB")
+        f"{peak:.2f} GiB ({held:.2f} GiB held before the phase)")
 
     busy, wall, top, kinds, copies, pool_copies = _profile_train_step(
         step, TRAIN_WARMUP + TRAIN_STEPS, out_dir, cfg.POOLING_SIZE,
         model.detector.dout_base_model, spec,
-        cfg.MAX_NUM_GT_BOXES * src["gt_boxes"].shape[0])
+        cfg.MAX_NUM_GT_BOXES * src["gt_boxes"].shape[0],
+        suffix="" if pool_op == "roi_align_avg" else "_crop")
     torch.backends.cudnn.allow_tf32 = False
     log(f"[{tag}] cudnn.allow_tf32=False for the checks")
     calls, nms_calls, pool_calls = _capture_train(spec, model, extra, src,
-                                                  tgt)
-    entries = _backward_parity(spec, calls, launches)
+                                                  tgt, pool_op)
+    entries = _backward_parity(spec, calls, launches, op=pool_op)
     copy_ms = sum(ms for _, _, ms in copies)
     for e in entries:
-        if e["name"].startswith("roi_align"):
-            e["layout_copy_ms"] = copy_ms
+        e["layout_copy_ms"] = copy_ms
     prefix = "train" if spec.name == "daf" else f"{spec.name} train"
-    for site, (boxes, scores, kw) in zip(spec.nms_sites, nms_calls):
+    # the proposal problems do not depend on the pooling: held at align
+    for site, (boxes, scores, kw) in zip(
+            spec.nms_sites if pool_op == "roi_align_avg" else (), nms_calls):
         entries.append(_nms_entry(f"{prefix} {site}", boxes, scores, kw,
                                   launches.get("nms", 0)))
     pool_copy_ms = sum(ms for _, _, ms in pool_copies)
@@ -2251,12 +2341,11 @@ def train_phase(spec, cfg, seed, out_dir):
                                              nc)),
             make_train_batch(*spec.train_hw, 0, seed + 21 + 2 * i, cfg, dev,
                              nc), *extra),
-        {**per_step, "roi_pool": len(spec.pool_sites),
-         "roi_pool_backward": len(spec.pool_sites)}, seed, out_dir)
+        {k: n for k, n in per_step.items() if n}, seed, out_dir)
     summary = {"ms_per_step": ms, "step_ms": times,
                "images_per_s": 2000.0 / ms, "busy_ms": busy,
                "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
-               "peak_memory_gib": peak,
+               "peak_memory_gib": peak, "held_before_gib": held,
                "launches": launches, "card_vs_cpu": ref_errs,
                "top_kernels": top, "layout_copy_ms": copy_ms,
                "layout_copies": copies, "fused": fused}
@@ -2336,7 +2425,7 @@ def idf_eval_phase(cfg, seed, ims, info, roidb, out_dir):
 
     torch.backends.cudnn.allow_tf32 = False
     calls = _capture(infer, ims[:1], info[:1], head=model.detector.head)
-    (feat, rois), kw = calls["roi_align"][0]
+    (feat, rois), kw = calls["pool"][0]
     entries = [_roi_align_entry(feat, rois, kw, torch.float32,
                                 launches["roi_align_avg"], label="idf eval")]
     for label, site in (("idf proposal", "rpn_nms"),
@@ -2432,17 +2521,8 @@ def _profile_train_step(step, i, out_dir, pool, channels, spec, gt_rows,
     ms). Around RoIAlignAvg, C = ``channels``; around RoIPool (the methods
     with ``pool_sites``), R is ``gt_rows`` or twice it (CLUB's pairs) and C
     a tap's width."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    step(i)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        t0 = time.perf_counter()
-        step(i + 1)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = iter((i, i + 1))
+    prof, wall_ms = _traced(lambda: step(next(steps)), record_shapes=True)
     name = "train" if spec.name == "daf" else f"{spec.name}_train"
     trace = os.path.join(out_dir, f"chip_smoke_{name}{suffix}_trace.json")
     busy, top, kinds = _device_breakdown(
@@ -2451,7 +2531,7 @@ def _profile_train_step(step, i, out_dir, pool, channels, spec, gt_rows,
     club_rows = (gt_rows, 2 * gt_rows) if spec.pool_sites else ()
     copies = [cp for cp in _layout_copies(trace, pool, (channels,))
               if cp[1][0][0] not in club_rows]
-    log(f"[profile] layout copies around RoIAlignAvg: "
+    log(f"[profile] layout copies around the RoI pooling: "
         f"{sum(ms for _, _, ms in copies):.4f} ms in {len(copies)} ops: "
         + "; ".join(f"{n} {sh} {ms:.4f} ms" for n, sh, ms in copies))
     convs, conv_ms, n_convs = _conv_ops(trace)
@@ -2540,11 +2620,12 @@ def _conv_ops(trace_path, n=12):
             sum(g[1] for g in ranked))
 
 
-def _capture_train(spec, model, extra, src, tgt):
-    """One forward and backward of the train path with ``roi_align_avg``
-    wrapped to record (map, RoIs, kwargs) and the gradient that reaches its
-    output, and the proposal layer's NMS wrapped to record its problems; no
-    update. Returns the RoIAlignAvg records, one per ``spec.roi_sites``,
+def _capture_train(spec, model, extra, src, tgt, pool_op="roi_align_avg"):
+    """One forward and backward of the train path with its pooling op
+    (``pool_op``: ``roi_align_avg`` or ``roi_crop``) wrapped to record
+    (map, RoIs, kwargs) and the gradient that reaches its output, and the
+    proposal layer's NMS wrapped to record its problems; no update. Returns
+    the pooling records, one per ``spec.roi_sites``,
     the NMS problems (boxes, scores, kwargs), one per ``spec.nms_sites``,
     and the RoIPool records (map, RoIs, kwargs, output gradient), one per
     ``spec.pool_sites``."""
@@ -2554,7 +2635,7 @@ def _capture_train(spec, model, extra, src, tgt):
     from tllod_torch.train import StepRandom
 
     calls, nms_calls, pool_calls = [], [], []
-    saved, saved_nms = frcnn.roi_align_avg, rpn.nms_fixed_batched
+    saved, saved_nms = getattr(frcnn, pool_op), rpn.nms_fixed_batched
     saved_pool = pa_atf.roi_pool
 
     def pool(feat, rois, **kw):
@@ -2578,7 +2659,8 @@ def _capture_train(spec, model, extra, src, tgt):
         calls.append(rec)
         return out
 
-    frcnn.roi_align_avg, rpn.nms_fixed_batched = wrapped, nms
+    setattr(frcnn, pool_op, wrapped)
+    rpn.nms_fixed_batched = nms
     pa_atf.roi_pool = pool
     heads = [model.detector.head] + (
         [model.head_aux] if hasattr(model, "head_aux") else [])
@@ -2590,7 +2672,8 @@ def _capture_train(spec, model, extra, src, tgt):
                     rng=StepRandom(0, 10 ** 6, src["im_data"].device))
         spec.loss(out).backward()
     finally:
-        frcnn.roi_align_avg, rpn.nms_fixed_batched = saved, saved_nms
+        setattr(frcnn, pool_op, saved)
+        rpn.nms_fixed_batched = saved_nms
         pa_atf.roi_pool = saved_pool
         for h in hooks:
             h.remove()
@@ -2598,7 +2681,7 @@ def _capture_train(spec, model, extra, src, tgt):
         p.grad = None
     want = [site != "teacher" for site in spec.roi_sites]
     if [("grad" in c) for c in calls] != want:
-        raise RuntimeError(f"{spec.name} train path: expected RoIAlignAvg "
+        raise RuntimeError(f"{spec.name} train path: expected {pool_op} "
                            f"calls {spec.roi_sites}, got {len(calls)}")
     if len(nms_calls) != len(spec.nms_sites):
         raise RuntimeError(f"{spec.name} train path: expected proposal NMS "
@@ -2610,34 +2693,25 @@ def _capture_train(spec, model, extra, src, tgt):
     return calls, nms_calls, pool_calls
 
 
-def _plain_forward(feat_shape, rois, kw, dtype=None):
-    """The plain version's output on a map of ``feat_shape`` (float32 or
-    ``dtype``) that requires a gradient (the map gradient does not depend
-    on the map)."""
-    import torch
-    from tllod_torch.ops.roi_align import roi_align_avg_plain
-
-    f = torch.zeros(feat_shape, device=rois.device, requires_grad=True,
-                    dtype=dtype or torch.float32)
-    return roi_align_avg_plain(f, rois, **kw), f
-
-
-def _backward_entry(label, feat_shape, rois, grad, kw, dtype, launches,
+def _backward_entry(label, feat, rois, grad, kw, dtype, launches,
                     tag="train"):
     """The backward kernel on the train path's own output gradient, checked
     in both layouts (``_backward_check``), timed in the (R, C, P, P) layout
     that fc6's flatten hands back."""
     import torch
-    from tllod_torch.ops.roi_align import roi_align_avg_backward
+    from tllod_torch.ops.roi_align import (roi_align_avg_backward,
+                                           roi_align_avg_plain)
 
-    err, scale = _backward_check(label, feat_shape, rois, grad, kw, dtype)
+    feat_shape = tuple(feat.shape)
+    err, scale = _backward_check(label, feat, rois, grad, kw, dtype)
     g = grad.to(dtype).permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     w_ms = cuda_ms(lambda: roi_align_avg_backward(g, rois, feat_shape, **kw),
                    reps=50)
     k_ms = cuda_ms(roi_align_launcher(g, rois, kw, feat_shape), reps=50)
     k0_ms = cuda_ms(roi_align_launcher(g.contiguous(), rois, kw, feat_shape),
                     reps=50)
-    out, f = _plain_forward(feat_shape, rois, kw, dtype)
+    f = feat.detach().to(dtype, copy=True).requires_grad_(True)
+    out = roi_align_avg_plain(f, rois, **kw)
     p_ms = cuda_ms(lambda: torch.autograd.grad(out, f, g,
                                                retain_graph=True), reps=5)
     b, h, w, c = feat_shape
@@ -2663,11 +2737,18 @@ def _backward_entry(label, feat_shape, rois, grad, kw, dtype, launches,
     return e
 
 
-def _backward_parity(spec, calls, launches, bf16=False):
-    """Both RoIAlignAvg kernels on the train path's own tensors (maps of
-    the step's type: float32, or bfloat16 under ``bf16``), each with its
-    launch count from the timed steps: the forward at every site, the
-    backward where a gradient reached the output (not the teacher's)."""
+def _backward_parity(spec, calls, launches, bf16=False, op="roi_align_avg"):
+    """Both pooling kernels of ``op`` (RoIAlignAvg's or RoICrop's) on the
+    train path's own tensors (maps of the step's type: float32, or bfloat16
+    under ``bf16``), each with its launch count from the timed steps: the
+    forward at every site, the backward where a gradient reached the
+    output (not the teacher's)."""
+    if op == "roi_crop":
+        return [e for site, rec in zip(spec.roi_sites, calls)
+                for e in _crop_entries(
+                    f"{spec.tag} {site}", rec["feat"], rec["rois"],
+                    rec["kw"], launches, grad=rec.get("grad"),
+                    dtypes=(rec["feat"].dtype,), tag=spec.tag)]
     prefix = "train" if spec.name == "daf" else f"{spec.name} train"
     entries = []
     for site, rec in zip(spec.roi_sites, calls):
@@ -2680,7 +2761,7 @@ def _backward_parity(spec, calls, launches, bf16=False):
             continue
         label = site if spec.name == "daf" else f"{spec.name} {site}"
         entries.append(_backward_entry(
-            ("bf16 " if bf16 else "") + label, tuple(rec["feat"].shape),
+            ("bf16 " if bf16 else "") + label, rec["feat"],
             rec["rois"], rec["grad"], rec["kw"], dt,
             launches.get("roi_align_avg_backward", 0),
             "bf16" if bf16 else spec.tag))
@@ -3322,7 +3403,9 @@ TRACE_KERNELS = (("roi_align_avg_forward_kernel", "roi_align_avg"),
                  ("roi_align_avg_backward_kernel", "roi_align_avg_backward"),
                  ("nms_scan_kernel", "nms"),
                  ("roi_pool_rows_kernel<*false>", "roi_pool"),
-                 ("roi_pool_rows_kernel<*true>", "roi_pool_backward"))
+                 ("roi_pool_rows_kernel<*true>", "roi_pool_backward"),
+                 ("roi_crop_forward_kernel", "roi_crop"),
+                 ("roi_crop_backward_kernel", "roi_crop_backward"))
 
 
 class _Selections:
@@ -3413,7 +3496,6 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     the busy ms of one profiled replay, the peak memory through the
     capture and through the rounds. Returns the summary."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from tllod_torch.ops import _kernels
     from tllod_torch.train import StepRandom, TrainStepMulti, train_step
 
@@ -3598,12 +3680,7 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
             peaks[way] = max(peaks[way],
                              torch.cuda.max_memory_allocated() / 2 ** 30)
     reserved = torch.cuda.memory_reserved() / 2 ** 30
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        runner(opt.count, seq[:1])
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    prof, wall = _traced(lambda: runner(opt.count, seq[:1]))
     busy, top, kinds = _device_breakdown(
         prof, wall, f"{tag} graph replay",
         os.path.join(out_dir, f"chip_smoke_{tag}_fused_trace.json"))
@@ -3801,16 +3878,7 @@ def _profile_dp_step(step, out_dir):
     """One profiled eager DP step: the device breakdown, and the host time
     of the collectives (the process group's ops and NCCL's, by name: calls
     and CPU ms, and their device ms). Returns the summary."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    prof, wall = _traced(step)
     busy, _, kinds = _device_breakdown(
         prof, wall, "eager DP step (world 1)",
         os.path.join(out_dir, "chip_smoke_dp_step_trace.json"))
@@ -4238,6 +4306,481 @@ def parallel_phase(cfg, seed, out_dir, summaries):
     two = two_rank_phase(seed, out_dir)
     torch.backends.cudnn.allow_tf32 = False
     return entries, {"batch2": b2, "world1": world1, "two_ranks": two}
+
+# ---- [crop]: POOLING_MODE='crop' through the detector paths that pool ----
+# the crop kernels' sets at the main paths' shapes: (label, map (B, H, W,
+# C), RoIs): VGG16's map of a 600x1200 image at eval (300 proposals), DAF's
+# sampled source RoIs (256) and ATF's instance head (2000); ResNet-101's map
+# of a 600x1200 image at eval (300) and of US-DAF's 600x800 pair (128
+# sampled, 300 target proposals)
+CROP_SETS = (("eval", (1, 37, 75, 512), 300),
+             ("daf source", (1, 37, 75, 512), 256),
+             ("atf", (1, 37, 75, 512), 2000),
+             ("res101 eval", (1, 38, 75, 1024), 300),
+             ("us_daf source", (1, 38, 50, 1024), 128),
+             ("us_daf target", (1, 38, 50, 1024), 300))
+# (grid_size, max_pool): Config()'s default (CROP_RESIZE_WITH_MAX_POOL) and
+# the shipped configs' (cfgs/*.yml: no max)
+CROP_MODES = ((14, True), (7, False))
+TURNS = 2                   # rounds of align and crop steps in turns
+TURN_STEPS = 5              # timed steps a mode in each round
+
+
+def _crop_kw(cfg):
+    max_pool = cfg.CROP_RESIZE_WITH_MAX_POOL
+    return {"grid_size": cfg.POOLING_SIZE * (2 if max_pool else 1),
+            "max_pool": max_pool}
+
+
+def _crop_cfg(pairs, max_pool=None):
+    """``pairs`` (a config's KEY VALUE list) at ``POOLING_MODE crop``, with
+    ``CROP_RESIZE_WITH_MAX_POOL`` set when ``max_pool`` is given."""
+    from tllod_torch.config import Config, cfg_from_list
+    extra = ["POOLING_MODE", "crop"] + (
+        [] if max_pool is None else ["CROP_RESIZE_WITH_MAX_POOL",
+                                     str(max_pool)])
+    return cfg_from_list(Config(), list(pairs) + extra)
+
+
+def _crop_rois(feat_shape, n, seed):
+    """``n`` proposal-like RoIs on the (H * 16, W * 16) images of a map:
+    sides log-uniform from 16 px to 0.8 of the image's, inside it, on
+    random images of the batch."""
+    import torch
+
+    b, h, w, _ = feat_shape
+    rng = np.random.RandomState(seed)
+    ih, iw = h * 16, w * 16
+    bw = np.exp(rng.uniform(np.log(16), np.log(0.8 * iw), n))
+    bh = np.exp(rng.uniform(np.log(16), np.log(0.8 * ih), n))
+    x1, y1 = rng.rand(n) * (iw - bw), rng.rand(n) * (ih - bh)
+    rows = np.stack([rng.randint(0, b, n), x1, y1, x1 + bw - 1,
+                     y1 + bh - 1], 1)
+    return torch.tensor(rows, dtype=torch.float32, device="cuda")
+
+
+def _crop_edge_sets(feat, seed=13):
+    """On the map ``feat`` (1, H, W, C): RoIs on and past its edges (their
+    clipped points tie), zero-width, zero-height and zero-size RoIs (a
+    window's four samples tie), RoIs naming no image; then a batch-2 map
+    (``feat`` and a second map) with RoIs on both images."""
+    import torch
+
+    _, h, w, _ = feat.shape
+    ih, iw = h * 16, w * 16
+    rng = np.random.RandomState(seed)
+    edge = torch.tensor([
+        [0, -400, -300, -100, -50], [0, iw + 80, 10, iw + 300, ih - 10],
+        [0, iw - 16, ih - 16, iw + 200, ih + 150],
+        [0, -50, -40, iw + 50, ih + 40], [0, iw - 16, ih - 16, iw - 16,
+                                          ih - 16],
+        [0, 0, 0, 0, 0], [0, 300, 200, 250, 150], [1, 10, 10, 200, 200],
+        [-1, 10, 10, 200, 200]], dtype=torch.float32, device=feat.device)
+    n = 48
+    x, y = rng.rand(n) * iw, rng.rand(n) * ih
+    ext = 16 + rng.rand(n) * 300
+    zero = np.stack([np.zeros(n), x, y, np.where(np.arange(n) % 3 == 0, x,
+                                                 x + ext),
+                     np.where(np.arange(n) % 3 == 1, y, y + ext)], 1)
+    zero[np.arange(n) % 3 == 2, 3:] = zero[np.arange(n) % 3 == 2, 1:3]
+    two = torch.cat([feat, torch.relu(torch.randn(
+        feat.shape, device=feat.device, generator=torch.Generator(
+            device=feat.device).manual_seed(seed)))])
+    return {"edge and past the map": (feat, edge),
+            "zero width, height and size": (feat, torch.tensor(
+                zero, dtype=torch.float32, device=feat.device)),
+            "batch-2 map": (two, torch.cat([_crop_rois(two.shape, 64, seed),
+                                            edge[:4]]))}
+
+
+def _crop_library(f, rois, kw):
+    """The library yardsticks (never on the path): ``F.grid_sample`` on the
+    crop's clipped points (``padding_mode="border"``,
+    ``align_corners=True``), then ``F.max_pool2d(2)`` with the max: the
+    same function up to rounding. ``grid``: one call on the (1, C, H, W)
+    map with the RoIs' points stacked as one (1, R * G, G, 2) grid (each
+    RoI's G rows even with the max, so no window straddles two RoIs);
+    ``expand``: the map expanded to (R, C, H, W), one (G, G) grid a RoI,
+    whose backward writes an (R, C, H, W) map gradient and sums it. Returns
+    {form: a call that runs it, with ``.backward`` a call that takes its
+    map gradient (on a graph kept for it)}; B = 1 maps."""
+    import torch
+    import torch.nn.functional as F
+    from tllod_torch.ops.roi_crop import _crop_axes
+
+    _, h, w, c = f.shape
+    r, g = rois.shape[0], kw["grid_size"]
+    ys, xs = _crop_axes(rois, h, w, g)
+    gy = torch.clamp(ys, 0.0, h - 1.0) / (h - 1) * 2 - 1
+    gx = torch.clamp(xs, 0.0, w - 1.0) / (w - 1) * 2 - 1
+    grid = torch.stack([gx[:, None, :].expand(r, g, g),
+                        gy[:, :, None].expand(r, g, g)], -1).to(f.dtype)
+    forms = {"grid": (lambda x: x.permute(0, 3, 1, 2),
+                      grid.reshape(1, r * g, g, 2)),
+             "expand": (lambda x: x.permute(0, 3, 1, 2).expand(r, c, h, w),
+                        grid)}
+    calls = {}
+    for form, (nchw, gr) in forms.items():
+        def run(x, nchw=nchw, gr=gr):
+            out = F.grid_sample(nchw(x), gr, mode="bilinear",
+                                padding_mode="border", align_corners=True)
+            return F.max_pool2d(out, 2) if kw["max_pool"] else out
+
+        def call(run=run):
+            with torch.no_grad():
+                return run(f)
+
+        leaf = f.detach().requires_grad_(True)
+        out = run(leaf)
+        call.backward = (lambda out=out, leaf=leaf: torch.autograd.grad(
+            out, leaf, torch.ones_like(out), retain_graph=True))
+        calls[form] = call
+    return calls
+
+
+def _crop_ties(f, rois, kw):
+    """The (sample, channel) pairs that take a window's gradient: those
+    equal to their 2x2 window's max (every one without the max)."""
+    from tllod_torch.ops.roi_crop import out_size, roi_crop_plain
+
+    if not kw["max_pool"]:
+        p = kw["grid_size"]
+        return rois.shape[0] * p * p * f.shape[-1]
+    s = roi_crop_plain(f, rois, grid_size=kw["grid_size"], max_pool=False)
+    r, g, _, c = s.shape
+    p = out_size(g, True)
+    win = s[:, :2 * p, :2 * p].reshape(r, p, 2, p, 2, c)
+    return int((win == win.amax(dim=(2, 4), keepdim=True)).sum())
+
+
+def _crop_entries(label, feat, rois, kw, launches, grad=None,
+                  dtypes=None, tag="crop"):
+    """Both crop kernels on (map, RoIs) at ``kw``, checked
+    (``_forward_check``, ``_backward_check``) and timed, in each of
+    ``dtypes`` (float32 and bfloat16): device ms (``graph_ms``: the
+    wrapper's launches captured and replayed; the backward's zero fill
+    included), events ms around back-to-back wrapper calls, the plain
+    version's ms, the library yardsticks' (``_crop_library``; B = 1 maps:
+    ``library_ms`` the one-grid form, ``library_expand_ms`` the expanded
+    map) and the bound. ``grad`` is the output gradient (default: a seeded
+    normal one); ``launches`` the counts of the path that ran at this
+    shape and mode ({} where none ran). Returns the entries."""
+    import torch
+    from tllod_torch.ops.roi_crop import (out_size, roi_crop,
+                                          roi_crop_backward, roi_crop_plain)
+
+    feat, rois = feat.clone(), rois.clone()   # not inference tensors
+    b, h, w, c = feat.shape
+    r, g = rois.shape[0], kw["grid_size"]
+    p = out_size(g, kw["max_pool"])
+    mode = f"G={g}" + (" max" if kw["max_pool"] else "")
+    if grad is None:
+        grad = torch.randn((r, p, p, c), device=feat.device,
+                           generator=torch.Generator(
+                               device=feat.device).manual_seed(11))
+    gr = grad.float().permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    entries = []
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
+        f = feat.to(dtype).contiguous()
+        dt = str(dtype)[6:]
+        _, err = _forward_check(label, f, rois, kw, op="roi_crop")
+        lib = _crop_library(f, rois, kw)
+        k_ms = graph_ms(lambda: roi_crop(f, rois, **kw))
+        ev_ms = cuda_ms(lambda: roi_crop(f, rois, **kw), reps=20)
+        p_ms = cuda_ms(lambda: roi_crop_plain(f, rois, **kw), reps=3)
+        l_ms = {form: graph_ms(call) for form, call in lib.items()}
+        samples = r * (g * g if kw["max_pool"] else p * p)
+        # per (sample, channel): the four-term bilinear sum (8 mul, 3 add)
+        # and its 2 weights; per output, the 3 compares of the max
+        e = _entry("roi_crop",
+                   f"{label}: {dt} map {b}x{h}x{w}x{c}, {r} rois, {mode} -> "
+                   f"P={p}", launches.get("roi_crop", 0), err, k_ms, p_ms,
+                   f.element_size() * f.numel() + rois.numel() * 4
+                   + 4 * r * c * p * p,
+                   c * (samples * 13 + (3 * r * p * p if kw["max_pool"]
+                                        else 0)),
+                   events_ms=ev_ms, library_ms=l_ms["grid"],
+                   library_expand_ms=l_ms["expand"], exact=True,
+                   grid_size=g, max_pool=kw["max_pool"])
+        entries.append(e)
+        log(f"[{tag}-parity] roi_crop {e['shape']}: exact, kernel "
+            f"{k_ms:.4f} ms device ({ev_ms:.4f} events), plain "
+            f"{p_ms:.4f} ms, library {l_ms['grid']:.4f} ms (expanded map "
+            f"{l_ms['expand']:.4f}), bound {e['bound_ms']:.4f} ms "
+            f"({100 * e['bound_ms'] / k_ms:.1f}% of it), "
+            f"{e['launches']} launches")
+
+        err, scale = _backward_check(label, f, rois, gr, kw, dtype,
+                                     op="roi_crop")
+        kb_ms = graph_ms(lambda: roi_crop_backward(gr, f, rois, **kw))
+        kb0 = gr.contiguous()
+        kb0_ms = graph_ms(lambda: roi_crop_backward(kb0, f, rois, **kw))
+        evb_ms = cuda_ms(lambda: roi_crop_backward(gr, f, rois, **kw),
+                         reps=20)
+        leaf = f.detach().requires_grad_(True)
+        out = roi_crop_plain(leaf, rois, **kw)
+        pb_ms = cuda_ms(lambda: torch.autograd.grad(out, leaf, gr,
+                                                    retain_graph=True),
+                        reps=3)
+        del out
+        lb_ms = {form: cuda_ms(call.backward, reps=3)
+                 for form, call in lib.items()}
+        del lib
+        tied = _crop_ties(f, rois, kw)
+        # the output gradient and (with the max) the map read once, the
+        # float32 map gradient written once; per output and channel, the
+        # four samples recomputed and compared (with the max), and per
+        # sample that takes gradient, its share and four corner products
+        e = _entry("roi_crop_backward",
+                   f"{label}: {dt} grad {r}x{p}x{p}x{c} -> map "
+                   f"{b}x{h}x{w}x{c}, {mode}",
+                   launches.get("roi_crop_backward", 0), err, kb_ms, pb_ms,
+                   4 * gr.numel() + rois.numel() * 4 + 4 * f.numel()
+                   + (f.element_size() * f.numel() if kw["max_pool"]
+                      else 0),
+                   c * ((4 * 13 + 4) * r * p * p if kw["max_pool"] else 0)
+                   + tied * 10,
+                   events_ms=evb_ms, kernel_ms_rppc=kb0_ms,
+                   library_ms=lb_ms["grid"],
+                   library_expand_ms=lb_ms["expand"], tied_samples=tied,
+                   max_abs_want=scale,
+                   tolerance=({"atol": 1e-5 * scale, "rtol": 1e-5}
+                              if dtype == torch.float32 else
+                              {"bf16_spacings": 1, "atol": 1e-5 * scale}),
+                   grid_size=g, max_pool=kw["max_pool"])
+        entries.append(e)
+        log(f"[{tag}-parity] roi_crop_backward {e['shape']}: max err "
+            f"{err:.3g} (max |want| {scale:.3g}, both layouts, "
+            f"{tied / c:.0f} samples a channel take gradient), kernel "
+            f"{kb_ms:.4f} ms device, zero fill included ((R,P,P,C) "
+            f"{kb0_ms:.4f}; {evb_ms:.4f} events), plain {pb_ms:.4f} ms, "
+            f"library {lb_ms['grid']:.4f} ms (expanded map "
+            f"{lb_ms['expand']:.4f}), bound {e['bound_ms']:.4f} ms "
+            f"({100 * e['bound_ms'] / kb_ms:.1f}% of it), "
+            f"{e['launches']} launches")
+    return entries
+
+
+def _crop_kernel_sets(runs):
+    """The kernel sets: CROP_SETS at both CROP_MODES (float32 and bfloat16,
+    forward and backward, timed), then phase 4-like edge sets on the eval
+    map (checked, not timed). Maps are ReLU'd normals, as a backbone's.
+    ``runs`` maps (set label, grid size, max) to the launch counts of the
+    phase's run at that shape and mode; a set no run drove (ATF's, and
+    those at a mode no run took) has none. Returns (entries, edge
+    records)."""
+    import torch
+
+    entries, records = [], []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    maps = {}
+    for k, (label, shape, n) in enumerate(CROP_SETS):
+        if shape not in maps:
+            maps[shape] = torch.relu(torch.randn(shape, device="cuda",
+                                                 generator=gen))
+        rois = _crop_rois(shape, n, 100 + k)
+        for g, mp in CROP_MODES:
+            entries += _crop_entries(f"set {label}", maps[shape], rois,
+                                     {"grid_size": g, "max_pool": mp},
+                                     runs.get((label, g, mp), {}))
+    for label, (feat, rois) in _crop_edge_sets(
+            maps[CROP_SETS[0][1]]).items():
+        for g, mp in CROP_MODES:
+            kw = {"grid_size": g, "max_pool": mp}
+            rec = {"set": label, "rois": rois.shape[0], "grid_size": g,
+                   "max_pool": mp, "map": list(feat.shape)}
+            p = g // 2 if mp else g
+            grad = torch.randn((rois.shape[0], p, p, feat.shape[-1]),
+                               device="cuda", generator=gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                f = feat.to(dtype).contiguous()
+                _, err = _forward_check(label, f, rois, kw, op="roi_crop")
+                berr, scale = _backward_check(label, f, rois, grad, kw,
+                                              dtype, op="roi_crop")
+                rec[f"fwd_max_abs_err_{str(dtype)[6:]}"] = err
+                rec[f"bwd_max_abs_err_{str(dtype)[6:]}"] = berr
+                rec["bwd_max_abs_want"] = scale
+            rec["tied_samples"] = _crop_ties(feat, rois, kw)
+            records.append(rec)
+            log(f"[crop-parity] roi_crop {label}, G={g}"
+                f"{' max' if mp else ''}: {rec['rois']} rois, "
+                f"{rec['tied_samples'] / feat.shape[-1]:.0f} samples a "
+                f"channel take gradient: forward "
+                f"exact (float32 and bf16); backward err "
+                f"{rec['bwd_max_abs_err_float32']:.3g} / bf16 "
+                f"{rec['bwd_max_abs_err_bfloat16']:.3g} (max |want| "
+                f"{scale:.3g}, both layouts)")
+    return entries, records
+
+
+def crop_eval_phase(seed, ims, info, roidb, out_dir):
+    """VGG16 eval at crop: phase 2's model config and images at both crop
+    modes (the shipped vgg16.yml keys: G = 7, no max; ``Config()``'s: G =
+    14 and the max), each through ``time_eval`` at eval batch 1: one crop
+    launch an image and no RoIAlign, busy share; every image's crop call
+    held to the plain version, and the first timed. Returns (entries,
+    summary)."""
+    import torch
+    from tllod_torch.eval_engine import detect_chunks
+    from tllod_torch.models.faster_rcnn import FasterRCNN
+
+    model = FasterRCNN(len(CLASSES), _crop_cfg(VGG16_CITYSCAPE), "vgg16",
+                       device="cuda", seed=seed)
+    entries, summary = [], {}
+    for max_pool in (False, True):
+        cfg = _crop_cfg(VGG16_CITYSCAPE, max_pool)
+        model.cfg = cfg
+        name = f"vgg16 G={_crop_kw(cfg)['grid_size']}" + (
+            " max" if max_pool else "")
+        torch.backends.cudnn.allow_tf32 = True          # the defaults
+        per_image, passes, launches, quality = time_eval(
+            model, cfg, ims, info, roidb, CLASSES, (1,), f"crop-eval {name}")
+        if launches.get("roi_crop", 0) != len(ims) * REPS or launches.get(
+                "roi_align_avg", 0) or launches.get("nms", 0) < 1:
+            raise RuntimeError(f"crop eval {name}: launches {launches}, "
+                               f"roi_crop {len(ims) * REPS} expected")
+        busy, wall, _ = _profile_window(
+            lambda: detect_chunks(model, chunks_of(ims, info, 1), cfg,
+                                  num_classes=len(CLASSES)),
+            f"crop eval {name}",
+            os.path.join(out_dir,
+                         f"chip_smoke_crop_eval_{int(max_pool)}_trace.json"))
+        torch.backends.cudnn.allow_tf32 = False
+        for i in range(len(ims)):
+            (feat, rois), kw = _capture(model, ims[i:i + 1], info[i:i + 1],
+                                        pool_op="roi_crop")["pool"][0]
+            if i:
+                _forward_check(f"eval image {i}", feat, rois, kw,
+                               op="roi_crop")
+            else:
+                entries += _crop_entries(f"eval {name}", feat, rois, kw,
+                                         launches, dtypes=(torch.float32,))
+        summary[name] = {"ms_per_image": per_image[1],
+                         "pass_ms_per_image": passes[1], "busy_ms": busy,
+                         "profiled_wall_ms": wall, "launches": launches,
+                         "detections": quality[1][0], "mAP": quality[1][1],
+                         "calls_held": len(ims)}
+        log(f"[crop] eval {name}: {per_image[1]:.3f} ms/image, busy "
+            f"{busy:.3f} of {wall:.3f} ms a pass of {len(ims)}, every "
+            f"image's crop held")
+    del model
+    torch.cuda.empty_cache()
+    return entries, summary
+
+
+def pool_modes_in_turns(spec, seed):
+    """``spec``'s step (DAF) on one model at align and at ``Config()``'s
+    crop in turns (the configs swapped between steps): per round and mode,
+    TURN_STEPS timed steps, then one step traced cold (no warm-up, no
+    guard: as this script traced before ``_traced``) and one traced warm,
+    each trace's busy ms, device events and ms by kind. Tells a busy gap between the modes that
+    the pooling makes from one the trace makes. Returns the readings."""
+    import torch
+    from tllod_torch.config import Config, cfg_from_list
+    from tllod_torch.train import train_step
+
+    dev = torch.device("cuda")
+    cfgs = {"align": cfg_from_list(Config(), VGG16_CITYSCAPE),
+            "crop": _crop_cfg(VGG16_CITYSCAPE, True)}
+    model, extra = spec.build(cfgs["crop"], seed, dev)
+    src = make_train_batch(*spec.train_hw, 1, seed + 10, cfgs["crop"], dev)
+    tgt = make_train_batch(*spec.train_hw, 0, seed + 11, cfgs["crop"], dev)
+    opt = phase_optimizer(spec, cfgs["crop"], model)
+    count = iter(range(10 ** 6))
+
+    def step():
+        return train_step(model, spec.loss, opt, (src, tgt, *extra),
+                          seed=seed, step=next(count))
+
+    torch.backends.cudnn.allow_tf32 = True          # the defaults
+    readings = {mode: {"ms": [], "cold": [], "warm": []} for mode in cfgs}
+    for rnd in range(TURNS + 1):                     # round 0: warm-up
+        for mode, cfg in cfgs.items():
+            model.cfg = model.detector.cfg = cfg
+            times = []
+            for _ in range(TURN_STEPS if rnd else 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            if not rnd:
+                continue
+            readings[mode]["ms"] += times
+            for how in ("cold", "warm"):
+                prof, wall = _traced(step, warm=how == "warm")
+                busy, n_events, _, kinds = _device_events(prof)
+                readings[mode][how].append(
+                    {"busy_ms": busy, "wall_ms": wall, "events": n_events,
+                     "ms_by_kind": kinds})
+                log(f"[crop-turns] round {rnd} {mode} traced {how}: busy "
+                    f"{busy:.3f} ms of {wall:.3f}, {n_events} device "
+                    f"events; " + ", ".join(
+                        f"{k} {ms:.3f}" for k, ms in sorted(
+                            kinds.items(), key=lambda kv: -kv[1])))
+    for mode, r in readings.items():
+        r["ms_per_step"] = float(np.median(r["ms"]))
+        log(f"[crop-turns] {mode}: {r['ms_per_step']:.3f} ms/step (median "
+            f"of {len(r['ms'])} in {TURNS} rounds in turns); busy cold "
+            + " / ".join(f"{t['busy_ms']:.3f}" for t in r["cold"])
+            + " (events " + " / ".join(str(t["events"]) for t in r["cold"])
+            + "), warm " + " / ".join(f"{t['busy_ms']:.3f}"
+                                      for t in r["warm"])
+            + " (events " + " / ".join(str(t["events"]) for t in r["warm"])
+            + ")")
+    torch.backends.cudnn.allow_tf32 = False
+    del model, extra, opt
+    torch.cuda.empty_cache()
+    return readings
+
+
+def crop_phase(seed, ims, info, roidb, out_dir):
+    """Phase 5i (``[crop]``): VGG16 eval at both crop modes; the DAF step at
+    ``Config()``'s crop through ``train_phase`` (one card-vs-CPU pair); DAF
+    at align and crop in turns; US-DAF's res101 step and the res101 eval
+    at res101.yml's crop; then the kernel sets, each row with the launches
+    of the run at its shape and mode. Returns (entries, summary)."""
+    import torch
+
+    t0 = time.perf_counter()
+    entries, evals = crop_eval_phase(seed, ims, info, roidb, out_dir)
+    daf = _method("daf")._replace(tag="crop-daf", ref_pairs=1)
+    e, train = train_phase(daf, _crop_cfg(VGG16_CITYSCAPE, True), seed,
+                           out_dir)
+    entries += e
+    turns = pool_modes_in_turns(daf, seed)
+    us = _method("us_daf")
+    e, res = train_phase(us._replace(
+        tag="crop-us_daf",
+        cfg_pairs=tuple(us.cfg_pairs) + ("POOLING_MODE", "crop")), None,
+        seed, out_dir)
+    entries += e
+    e, res_eval = resnet_eval_phase(seed, out_dir, crop=True)
+    entries += e
+    runs = {("eval", 7, False): evals["vgg16 G=7"]["launches"],
+            ("eval", 14, True): evals["vgg16 G=14 max"]["launches"],
+            ("daf source", 14, True): train["launches"],
+            ("res101 eval", 7, False): res_eval["launches"],
+            ("us_daf source", 7, False): res["launches"],
+            ("us_daf target", 7, False): res["launches"]}
+    e, sets = _crop_kernel_sets(runs)
+    entries += e
+    torch.backends.cudnn.allow_tf32 = False
+    log("[crop] summary: " + "; ".join(
+        f"eval {n} {v['ms_per_image']:.3f} ms/image, busy "
+        f"{v['busy_ms']:.3f} ms a pass" for n, v in evals.items())
+        + f"; daf {train['ms_per_step']:.3f} ms/step, busy "
+        f"{train['busy_ms']:.3f} ms, peak {train['peak_memory_gib']:.2f} "
+        f"GiB, fused graph {train['fused']['graph_ms_median']:.3f} ms/step; "
+        f"in turns align {turns['align']['ms_per_step']:.3f} / crop "
+        f"{turns['crop']['ms_per_step']:.3f} ms/step; us_daf "
+        f"{res['ms_per_step']:.3f} ms/step; res101 eval "
+        f"{res_eval['ms_per_image']:.3f} ms/image; the phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return entries, {"sets": sets, "eval": evals, "daf": train,
+                     "in_turns": turns, "us_daf": res,
+                     "res101_eval": res_eval}
+
 
 if __name__ == "__main__":
     sys.exit(main())

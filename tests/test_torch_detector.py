@@ -161,10 +161,32 @@ def test_model_without_card_or_cpu_request_raises(monkeypatch):
         FasterRCNN(9, cfg_t, net="vgg16_thin")
 
 
-def test_unported_paths_raise(rng):
-    feat = torch.zeros(1, 4, 6, 128)
-    for mode in ("crop",):
-        _, cfg_t = configs(["POOLING_MODE", mode])
-        model = FasterRCNN(9, cfg_t, net="vgg16_thin", device="cpu")
-        with pytest.raises(NotImplementedError):
-            model.roi_features(feat, torch.zeros(1, 5))
+def test_unported_paths_raise(rng, monkeypatch):
+    """Every pooling mode is ported: a detector built from ``Config()``
+    (``POOLING_MODE='crop'``, ``CROP_RESIZE_WITH_MAX_POOL``) pools as the
+    JAX detector from its ``Config()`` does, bit for bit on the grid JAX's
+    jitted steps compute (its ``affine_grid_points`` jitted, see
+    ``test_torch_roi_crop.py``); an unknown mode raises."""
+    from tllod_tpu.config import Config as JaxConfig
+    from tllod_tpu.ops import roi_crop as j_roi_crop
+    from tllod_torch.config import Config
+
+    monkeypatch.setattr(j_roi_crop, "affine_grid_points", jax.jit(
+        j_roi_crop.affine_grid_points, static_argnums=(1, 2, 3)))
+    feat = rng.randn(2, 6, 9, 128).astype(np.float32)
+    rois = np.array([[0, 8, 8, 120, 90], [1, 30, 10, 60, 40],
+                     [0, 0, 0, 200, 130], [1, 50, 40, 50, 40],
+                     [1, 100, 60, 180, 200]], np.float32)
+    model = FasterRCNN(9, Config(), net="vgg16_thin", device="cpu")
+    assert model.cfg.POOLING_MODE == "crop"
+    got = model.roi_features(torch.from_numpy(feat), torch.from_numpy(rois))
+    j_model = JaxFasterRCNN(num_classes=9, cfg=JaxConfig(),
+                            net="vgg16_thin")
+    want = j_model.apply({}, jnp.asarray(feat), jnp.asarray(rois),
+                         method=JaxFasterRCNN.roi_features)
+    assert got.shape == want.shape == (5, 7, 7, 128)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    _, cfg_t = configs(["POOLING_MODE", "warp"])
+    with pytest.raises(ValueError, match="POOLING_MODE"):
+        FasterRCNN(9, cfg_t, net="vgg16_thin", device="cpu").roi_features(
+            torch.from_numpy(feat), torch.from_numpy(rois))

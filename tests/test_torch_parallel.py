@@ -519,6 +519,68 @@ def test_daf_train_cli_on_two_ranks_logs_the_single_process_losses(
                "axis" in log
 
 
+def test_roidb_cache_is_never_read_half_written(tmp_path, monkeypatch):
+    """The ranks of a data-parallel run build the same roidb cache at once.
+    A rank that looks for the cache while another's write is half done
+    must not read the half: the two-rank CLI test above failed under load
+    with ``EOFError: Ran out of input`` from ``pickle.load`` in
+    ``gt_roidb``. Here the writer stalls half way and a second reader runs
+    then: it finds no cache, parses the annotations itself and gets the
+    whole roidb, and the cache left behind is the whole one."""
+    import builtins
+    from tllod_torch.data.voc import CLASS_SETS, VOCDetection
+
+    data = tmp_path / "data"
+    subprocess.run([sys.executable, os.path.join(REPO, "tools",
+                                                 "make_synth_voc.py"),
+                    str(data)], check=True, capture_output=True)
+    cache = str(tmp_path / "cache")
+
+    def dataset():
+        return VOCDetection("cityscape_2007_train_s",
+                            str(data / "cityscape" / "VOC2007"), "train_s",
+                            CLASS_SETS["cityscape"], cache_dir=cache)
+
+    real_open, seen = builtins.open, []
+
+    class Stalled:
+        """A cache file whose write lets another rank read half way."""
+
+        def __init__(self, f):
+            self.f = f
+
+        def write(self, b):
+            n = self.f.write(b[:len(b) // 2])
+            self.f.flush()
+            builtins.open = real_open
+            try:
+                seen.append(dataset().gt_roidb())
+            except Exception as err:             # noqa: BLE001
+                seen.append(err)
+            return n + self.f.write(b[len(b) // 2:])
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return self.f.__exit__(*exc)
+
+    def stalling_open(path, mode="r", *a, **kw):   # the cache's writes
+        f = real_open(path, mode, *a, **kw)
+        return Stalled(f) if "w" in mode else f
+
+    monkeypatch.setattr(builtins, "open", stalling_open)
+    whole = dataset().gt_roidb()
+    monkeypatch.setattr(builtins, "open", real_open)
+    assert len(seen) == 1 and isinstance(seen[0], list), seen
+    assert len(seen[0]) == len(whole) == 4
+    assert [e["img_id"] for e in seen[0]] == [e["img_id"] for e in whole]
+    assert [e["img_id"] for e in dataset().gt_roidb()] == \
+        [e["img_id"] for e in whole]
+    assert sorted(os.listdir(cache)) == [
+        "cityscape_2007_train_s_gt_roidb.pkl"]
+
+
 def test_mgpus_and_shard_eval_alone_on_the_cpu_are_a_group_of_one(
         tmp_path, monkeypatch):
     """Without the ``TLLOD_DIST_*`` variables, ``--mGPUs`` on the CPU runs

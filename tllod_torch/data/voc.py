@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import tempfile
 import xml.etree.ElementTree as ET
 from typing import Dict, List, Optional, Sequence
 
@@ -52,6 +53,17 @@ CLASS_SETS: Dict[str, Sequence[str]] = {
     "watercolor": ("__background__",
                    "bicycle", "bird", "car", "cat", "dog", "person"),
 }
+
+
+def write_atomic(path: str, data: bytes) -> None:
+    """Write ``data`` to ``path`` through a file of the writer's own in the
+    same directory, renamed into place: a reader finds the old file, no
+    file, or the whole new one, never a part."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               prefix=os.path.basename(path) + ".")
+    with open(fd, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
 
 
 class VOCDetection:
@@ -142,7 +154,10 @@ class VOCDetection:
 
     def gt_roidb(self) -> List[dict]:
         """Parse all annotations (pickle-cached like the reference,
-        ``cityscape.py:130-148``)."""
+        ``cityscape.py:130-148``). The cache is written whole or not at
+        all (:func:`write_atomic`): the ranks of a data-parallel run build
+        the same roidb at once, and one must never read another's file
+        half written."""
         cache_file = None
         if self.cache_dir:
             os.makedirs(self.cache_dir, exist_ok=True)
@@ -159,6 +174,6 @@ class VOCDetection:
             entry["img_id"] = index
             roidb.append(entry)
         if cache_file:
-            with open(cache_file, "wb") as f:
-                pickle.dump(roidb, f, pickle.HIGHEST_PROTOCOL)
+            write_atomic(cache_file, pickle.dumps(roidb,
+                                                  pickle.HIGHEST_PROTOCOL))
         return roidb

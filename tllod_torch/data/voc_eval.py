@@ -17,6 +17,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from tllod_torch.data.voc import write_atomic
+
 
 def parse_rec(filename: str) -> List[dict]:
     """Parse one VOC xml annotation (reference ``voc_eval.py:15-33``)."""
@@ -115,7 +117,8 @@ def voc_eval(detpath: str, annopath: str, imagesetfile: str, classname: str,
              use_07_metric: bool = False):
     """File-based API matching the reference ``voc_eval`` signature
     (``voc_eval.py:70-104``): results files + xml annotations → (rec, prec,
-    ap). Annotations are pickle-cached per image-set file."""
+    ap). Annotations are pickle-cached per image-set file, written whole
+    or not at all."""
     os.makedirs(cachedir, exist_ok=True)
     cachefile = os.path.join(
         cachedir, "%s_annots.pkl" % os.path.basename(imagesetfile))
@@ -128,8 +131,7 @@ def voc_eval(detpath: str, annopath: str, imagesetfile: str, classname: str,
     else:
         recs = {name: parse_rec(annopath.format(name))
                 for name in imagenames}
-        with open(cachefile, "wb") as f:
-            pickle.dump(recs, f)
+        write_atomic(cachefile, pickle.dumps(recs))
 
     class_recs = {}
     for name in imagenames:

@@ -19,8 +19,10 @@ Training (``training=True``) draws its random numbers from a ``rng``
 argument, a :class:`tllod_torch.train.StepRandom`: the anchor-target and
 proposal-target priorities and the dropout masks, in the order the JAX
 module draws its ``sampling`` and ``dropout`` keys. ``POOLING_MODE`` is
-``align`` (RoIAlignAvg) or ``pool`` (RoIPool, :mod:`tllod_torch.ops.roi_pool`);
-``crop`` is not ported yet and raises.
+``align`` (RoIAlignAvg), ``pool`` (RoIPool, :mod:`tllod_torch.ops.roi_pool`)
+or ``crop`` (RoICrop, :mod:`tllod_torch.ops.roi_crop`: a 2 * POOLING_SIZE
+grid and the 2x2 max with ``CROP_RESIZE_WITH_MAX_POOL``, else a
+POOLING_SIZE grid), each on CUDA tensors through its kernels.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from tllod_torch.models.rpn import (RoiSamples, RPNHead, anchor_target,
 from tllod_torch.ops.anchors import generate_anchors, shift_anchors
 from tllod_torch.ops.losses import smooth_l1_loss, softmax_cross_entropy
 from tllod_torch.ops.roi_align import roi_align_avg
+from tllod_torch.ops.roi_crop import roi_crop
 from tllod_torch.ops.roi_pool import roi_pool
 
 
@@ -219,9 +222,13 @@ class FasterRCNN(nn.Module):
             return roi_align_avg(base_feat, rois, **kw)
         if cfg.POOLING_MODE == "pool":
             return roi_pool(base_feat, rois, **kw)
-        raise NotImplementedError(
-            f"POOLING_MODE={cfg.POOLING_MODE!r} is not ported yet "
-            f"(align and pool)")
+        if cfg.POOLING_MODE == "crop":
+            max_pool = cfg.CROP_RESIZE_WITH_MAX_POOL
+            return roi_crop(base_feat, rois,
+                            grid_size=cfg.POOLING_SIZE * (2 if max_pool
+                                                          else 1),
+                            max_pool=max_pool)
+        raise ValueError(f"unknown POOLING_MODE={cfg.POOLING_MODE!r}")
 
     def box_head(self, pooled: torch.Tensor, *, deterministic: bool = True,
                  rng=None) -> torch.Tensor:

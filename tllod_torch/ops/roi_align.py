@@ -156,16 +156,17 @@ class _RoIAlignAvg(torch.autograd.Function):
 LAYOUT_RPPC, LAYOUT_RCPP = 0, 1
 
 
-def grad_layout(grad_out: torch.Tensor):
-    """(tensor, layout) the backward kernel reads for a logical (R, P, P, C)
+def grad_layout(grad_out: torch.Tensor,
+                counter: str = "roi_align_avg_grad_copy"):
+    """(tensor, layout) a backward kernel reads for a logical (R, P, P, C)
     output gradient: itself when it is (R, P, P, C)- or (R, C, P, P)-
     contiguous; else a (R, P, P, C)-contiguous copy, counted in
-    ``_kernels.launches["roi_align_avg_grad_copy"]``."""
+    ``_kernels.launches[counter]``."""
     if grad_out.is_contiguous():
         return grad_out, LAYOUT_RPPC
     if grad_out.permute(0, 3, 1, 2).is_contiguous():
         return grad_out, LAYOUT_RCPP
-    _kernels.launches["roi_align_avg_grad_copy"] += 1
+    _kernels.launches[counter] += 1
     return grad_out.contiguous(), LAYOUT_RPPC
 
 
