@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, drive, check.
 
     python3 chip_smoke.py [--seed 0] [--out output/chip_smoke]
+    python3 chip_smoke.py --only optim|crop   # one phase alone
 
 Phases, each ending the run nonzero on failure:
 
@@ -151,7 +152,10 @@ Phases, each ending the run nonzero on failure:
    runs'. Then each batch stepped eagerly twice and replayed from one
    state: draws, proposal NMS keep lists, sampled RoIs and labels and
    ``fg_cnt`` equal, losses within 1e-6, the replay's update within twice
-   the second eager step's distance from the first. A ``torch.profiler``
+   the second eager step's distance from the first (under Adam: the
+   replay's gradients within twice the largest gap among 4 eager steps,
+   and its update within one float32 spacing of Adam applied to those
+   gradients). A ``torch.profiler``
    trace of one replay counts each kernel's launches by name; eager and
    graph ms/step in turns (3 rounds of 10 steps each way), the replay's
    busy ms, peak memory. A ``[fused] summary`` line; each path's summary
@@ -203,9 +207,10 @@ Phases, each ending the run nonzero on failure:
    crop (G = 7, no max) and at ``Config()``'s (G = 14 and the 2x2 max),
    timed as phase 2: one crop launch an image and no RoIAlign, busy, every
    image's call held to the plain version. Phase 5's ``train_phase`` for
-   DAF at ``Config()``'s crop (one card-vs-CPU pair; the crop forward and
-   backward once a step at each site, no gradient copy; each site's crop
-   held and timed; ``fused_phase``). DAF at align and at crop in turns on
+   DAF and for ATF at ``Config()``'s crop (one card-vs-CPU pair each; the
+   crop forward and backward once a step at each site, ATF's at 256, 256,
+   2000 and 2000 RoIs, no gradient copy; each site's crop held and timed;
+   ``fused_phase``). DAF at align and at crop in turns on
    one model: ms/step, and each mode's step traced cold and warm (busy,
    device events). ``train_phase`` for US-DAF and phase 4b's res101 eval,
    both at res101.yml's crop. Then the kernel sets: ``CROP_SETS`` (each
@@ -216,8 +221,10 @@ Phases, each ending the run nonzero on failure:
    the library yardsticks ``F.grid_sample`` + ``F.max_pool2d`` on one
    stacked grid and on the map expanded to the RoIs; bound), each with
    the launches of the run at its shape and mode; and edge RoIs past the
-   map, zero-width, -height and -size RoIs (2- to 4-way ties of the max)
-   and a batch-2 map, checked.
+   map, zero-width, -height and -size RoIs (2- to 4-way ties of the max),
+   a batch-2 map, maps of two rows and of two columns and the map cut to
+   C = 509, checked at both modes and at the grid's extremes (G = 2 and 3
+   with the max, 31 and 32 without).
    Prints one ``{"kernels": [...]}`` line with times and bounds of every
    kernel at every shape.
 6. Prints the card's ``nvidia-smi`` name and power limit, then the last
@@ -234,6 +241,7 @@ or the JAX package.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -466,6 +474,12 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(REPO, "output",
                                                   "chip_smoke"),
                     help="directory for the kernels JSON and the trace")
+    ap.add_argument("--only", choices=("optim", "crop"),
+                    help="build the kernels, then run phase 5f or 5i alone "
+                         "and print its summary; no other phase and no ok "
+                         "line. crop also keeps each train site's crop "
+                         "tensors under OUT/crop_sites, for roi_pool_ab.py "
+                         "--op crop --sites")
     args = ap.parse_args()
 
     import torch
@@ -491,10 +505,26 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    cfg = cfg_from_list(Config(), VGG16_CITYSCAPE)
+    os.makedirs(args.out, exist_ok=True)
+    if args.only == "optim":
+        out = optim_phase(cfg, args.seed, args.out)["fused_adam"]
+        log("[optim] alone: " + json.dumps({k: out[k] for k in (
+            "replayed_update_gap", "eager_update_gap", "replayed_grad_gap",
+            "eager_grad_gap", "adam_replay_spacings")}))
+        return 0
+    if args.only == "crop":
+        global CROP_SITES
+        CROP_SITES = os.path.join(args.out, "crop_sites")
+        os.makedirs(CROP_SITES, exist_ok=True)
+        out = crop_phase(args.seed, *make_images(
+            N_IMAGES, args.seed, cfg.PIXEL_MEANS), args.out)[1]
+        log("[crop] alone: " + json.dumps(out, default=str))
+        return 0
+
     # ---- 2. main path ----
     from tllod_torch.models.faster_rcnn import FasterRCNN
 
-    cfg = cfg_from_list(Config(), VGG16_CITYSCAPE)
     model = FasterRCNN(num_classes=len(CLASSES), cfg=cfg, net="vgg16",
                        device=dev, seed=args.seed)
     ims, info, roidb = make_images(N_IMAGES, args.seed, cfg.PIXEL_MEANS)
@@ -508,7 +538,6 @@ def main() -> int:
         if launches.get(name, 0) < 1:
             raise RuntimeError(f"main path never launched kernel {name}")
 
-    os.makedirs(args.out, exist_ok=True)
     profile_main_path(model, ims, info, args.out)
 
     torch.backends.cudnn.allow_tf32 = False
@@ -2744,6 +2773,14 @@ def _backward_parity(spec, calls, launches, bf16=False, op="roi_align_avg"):
     forward at every site, the backward where a gradient reached the
     output (not the teacher's)."""
     if op == "roi_crop":
+        if CROP_SITES:
+            import torch
+            for site, rec in zip(spec.roi_sites, calls):
+                torch.save({k: (rec[k].clone() if torch.is_tensor(rec[k])
+                                else rec[k])
+                            for k in ("feat", "rois", "kw", "grad")
+                            if k in rec}, os.path.join(
+                                CROP_SITES, f"{spec.tag} {site}.pt"))
         return [e for site, rec in zip(spec.roi_sites, calls)
                 for e in _crop_entries(
                     f"{spec.tag} {site}", rec["feat"], rec["rois"],
@@ -3214,13 +3251,9 @@ def optim_phase(cfg, seed, out_dir):
     order, each on a model from ``seed``: TRAIN_WARMUP steps, then
     FLAG_STEPS timed ones with the peak memory reset before; finite
     losses; ms/step, peak memory and the optimizer state's bytes. Then
-    ``fused_phase`` under Adam, its per-state update gate floored at 1e-6
-    relative L2: Adam scales each element's step to about lr whatever the
-    size of its gradient, so the last-bit noise of the atomic sums moves
-    the elements whose gradient is at that noise by a share of lr, and the
-    update gaps of two eager steps from one state (1e-10-2e-8 on the
-    H100) bear no fixed ratio to a replay's (up to 1.5e-7). Returns the
-    summary."""
+    ``fused_phase`` under Adam, which holds Adam's replays by their
+    gradients and by the update Adam makes of them (see there). Returns
+    the summary."""
     import torch
     from tllod_torch.train import train_step
 
@@ -3267,7 +3300,7 @@ def optim_phase(cfg, seed, out_dir):
                     make_train_batch(*spec.train_hw, 0, seed + 21 + 2 * i,
                                      cfg, dev)),
                 {"roi_align_avg": 2, "roi_align_avg_backward": 2, "nms": 2},
-                seed, out_dir, update_floor=1e-6)
+                seed, out_dir)
         del model, opt
         torch.cuda.empty_cache()
     saved = out["sgd"]["state_bytes"] - out["sgd bf16"]["state_bytes"]
@@ -3397,6 +3430,7 @@ def overfit_phase(seed, out_dir, bf16):
 
 
 FUSE_K = 4                  # fused steps held to eager steps from one state
+ADAM_EAGER = 4              # eager steps a state under Adam, for the spread
 FUSE_ROUNDS, FUSE_ROUND_STEPS = 3, 10     # timed rounds each way, in turns
 # each kernel's trace name and the launch counter it is credited to
 TRACE_KERNELS = (("roi_align_avg_forward_kernel", "roi_align_avg"),
@@ -3460,7 +3494,7 @@ def _trace_counts(prof):
 
 
 def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
-                out_dir, update_floor=0.0):
+                out_dir):
     """Phase 5d (``[fused]``): ``train.TrainStepMulti``, the CUDA-graph
     replays of ``--fuse_steps``, on the train path that the phase before it
     drove, with its model, SGD and config; ``args_for(i)`` gives the
@@ -3486,8 +3520,21 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     sampled RoIs and labels and ``fg_cnt`` equal the eager step's, every
     loss within 1e-6 relative, and its update (the parameters' change, L2
     over all trained parameters) as far from the first eager step's as
-    twice the second eager step's is at most, or 1e-6 where that is 0,
-    and at least ``update_floor`` (Adam's: see ``optim_phase``).
+    twice the second eager step's is at most, or 1e-6 where that is 0.
+    Under Adam the update is not held so: Adam scales each element's step
+    to about lr whatever the size of its gradient, so the last-bit noise
+    of the atomic sums moves the elements whose gradient is at that noise
+    by a share of lr, and the update gaps of two eager steps bear no fixed
+    ratio to a replay's. Adam's replay is held instead by its gradients
+    (the clipped gradients the update read, L2 over all trained
+    parameters): as far from the first eager step's as twice the largest
+    gap between any two of ADAM_EAGER eager steps from the same state at
+    most (1e-6 where that is 0); Adam's gradients differ between runs by a
+    few atomic or cuDNN sums (1e-8-1e-6, the SGD paths' by ~1e-4), so one
+    pair's gap is too unsteady a yardstick. And by its update: Adam
+    applied eagerly to those same gradients from the same state (moments,
+    count) gives every parameter within one float32 spacing of the
+    replay's. Every reading is printed, and a NaN in any fails its gate.
 
     A ``torch.profiler`` trace of one replay counts ``per_step`` launches
     of each kernel by name. Then eager against graph ms/step in turns,
@@ -3498,12 +3545,21 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     import torch
     from tllod_torch.ops import _kernels
     from tllod_torch.train import StepRandom, TrainStepMulti, train_step
+    from tllod_torch.utils.optim import Adam
 
     torch.backends.cudnn.allow_tf32 = True          # the timed defaults
     dev = model.device
     batches = [args_for(i) for i in range(FUSE_K)]
     sel = _Selections()
     per_step = {k: n for k, n in per_step.items() if n}
+    adam = isinstance(opt, Adam)
+    graph_grads = {}    # the captured step's own gradient tensors
+
+    def keep(rng):
+        if adam and torch.cuda.is_current_stream_capturing():
+            graph_grads.update((n, p.grad) for n, p in
+                               opt.named_params().items())
+        return {"draws": rng.drawn, "sel": sel.pop()}
 
     def save():
         return ({k: v.clone() for k, v in model.state_dict().items()},
@@ -3517,6 +3573,10 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
 
     def trained():
         return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def grads():
+        """The clipped gradients the last eager update read."""
+        return {n: p.grad.clone() for n, p in opt.named_params().items()}
 
     def rel(x, want):
         return abs(x - want) / max(abs(want), 1e-30)
@@ -3556,9 +3616,7 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     restore(state0)
     _kernels.reset_launches()
     with sel:
-        runner = TrainStepMulti(model, loss_fn, opt, seed=seed,
-                                keep=lambda rng: {"draws": rng.drawn,
-                                                  "sel": sel.pop()})
+        runner = TrainStepMulti(model, loss_fn, opt, seed=seed, keep=keep)
         m_f = runner(step0, batches)
     torch.cuda.synchronize()
     credited = {k: n for k, n in _kernels.launches.items() if n}
@@ -3596,16 +3654,46 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
                            f"expected")
 
     # step by step from one state: eager, eager again, replay
-    def update_gap(after, other, before):
-        """|other - after| over |after - before|, all trained parameters
-        together (L2): a step's update told apart from another's."""
+    def gap(got, want, base=None):
+        """|got - want| over |want - base| (over |want| without a base),
+        all tensors together (L2)."""
         num = den = 0.0
-        for n, p in after.items():
-            num += float((other[n] - p).double().square().sum())
-            den += float((p - before[n]).double().square().sum())
+        for n, w in want.items():
+            num += float((got[n] - w).double().square().sum())
+            den += float((w if base is None else w - base[n])
+                         .double().square().sum())
         return (num / max(den, 1e-300)) ** 0.5
 
-    n_sel, loss_1, gap_e, gap_r = 0, 0.0, [], []
+    def spacings(got, want):
+        """The largest |got - want| in float32 spacings of ``want`` (NaN
+        where any is NaN)."""
+        worst = []
+        for n, w in want.items():
+            ulp = torch.nextafter(w.abs(), torch.full_like(w, float("inf"))
+                                  ) - w.abs()
+            worst.append(((got[n] - w).abs() / ulp).max())
+        return float(torch.stack(worst).max())
+
+    def most(xs):
+        """max(xs), NaN where any is NaN (Python's max skips them)."""
+        return float(torch.tensor(xs, dtype=torch.float64).max())
+
+    def adam_on(g, state):
+        """The parameters after Adam's update of the gradients ``g`` (the
+        clip already taken) from ``state``, eagerly."""
+        restore(state)
+        for n, p in opt.named_params().items():
+            p.grad = g[n].clone()
+        clip, opt.clip_norm = opt.clip_norm, None
+        try:
+            opt.fill_rate()
+            opt.update()
+        finally:
+            opt.clip_norm = clip
+        return trained()
+
+    n_sel, loss_1 = 0, 0.0
+    gap_e, gap_r, grad_e, grad_r, adam_ulps = [], [], [], [], []
     runner.kept.clear()
     with sel:
         for i, args in enumerate(batches):
@@ -3613,12 +3701,19 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
             before = trained()
             m_e, k_e = eager_step(args, i)
             p_e = trained()
+            g_eager = [grads()] if adam else []   # ADAM_EAGER steps' grads
             restore(state)
             m_e2, k_e2 = eager_step(args, i)
             p_e2 = trained()
+            g_eager += [grads()] if adam else []
             restore(state)
+            for _ in range(ADAM_EAGER - 2 if adam else 0):
+                eager_step(args, i)
+                g_eager.append(grads())
+                restore(state)
             m_r = runner(opt.count, [args])
             k_r = runner.kept.pop()
+            p_r = trained()
             for what in ("draws", "sel"):
                 a, r = k_e[what], k_r[what]
                 if len(a) != len(r) or not all(torch.equal(x, y)
@@ -3631,28 +3726,51 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
                 raise RuntimeError(f"{tag} replay of step {i}: fg_cnt "
                                    f"{float(m_r['fg_cnt'][0])}, eager "
                                    f"{float(m_e['fg_cnt'])}")
-            loss_1 = max([loss_1] + [rel(float(m_r[k][0]), float(m_e[k]))
-                                     for k in keys]
-                         + [rel(float(m_e2[k]), float(m_e[k]))
-                            for k in keys])
-            gap_e.append(update_gap(p_e, p_e2, before))
-            gap_r.append(update_gap(p_e, trained(), before))
-            del before, p_e, p_e2, state
+            loss_1 = most([loss_1] + [rel(float(m_r[k][0]), float(m_e[k]))
+                                      for k in keys]
+                          + [rel(float(m_e2[k]), float(m_e[k]))
+                             for k in keys])
+            gap_e.append(gap(p_e2, p_e, before))
+            gap_r.append(gap(p_r, p_e, before))
+            if adam:
+                g_r = {n: t.clone() for n, t in graph_grads.items()}
+                grad_e.append(most([gap(a, b) for a, b in
+                                    itertools.combinations(g_eager, 2)]))
+                grad_r.append(gap(g_r, g_eager[0]))
+                after = save()
+                adam_ulps.append(spacings(p_r, adam_on(g_r, state)))
+                restore(after)
+                del after, g_r
+            del before, p_e, p_e2, p_r, g_eager, state
     del runner
     log(f"[fused] {tag}: {FUSE_K} replays, each from the state of two "
         f"eager steps: draws and {n_sel} selections (keep lists and counts, "
         f"sampled RoIs and labels) equal, fg_cnt equal; losses rel. "
-        f"{loss_1:.3g}; update against the first eager step's, relative "
-        f"L2 over all trained parameters: replay "
+        f"{loss_1:.3g}; against the first eager step's, relative L2 over "
+        f"all trained parameters: update, replay "
         f"{', '.join(f'{g:.3g}' for g in gap_r)}, second eager step "
-        f"{', '.join(f'{g:.3g}' for g in gap_e)}")
-    if loss_1 > 1e-6:
+        f"{', '.join(f'{g:.3g}' for g in gap_e)}"
+        + (f"; gradients, replay {', '.join(f'{g:.3g}' for g in grad_r)}, "
+           f"largest gap of {ADAM_EAGER} eager steps "
+           f"{', '.join(f'{g:.3g}' for g in grad_e)}; Adam of the replay's "
+           f"gradients from its state against the replay, float32 spacings "
+           f"at most {', '.join(f'{u:.3g}' for u in adam_ulps)}"
+           if adam else ""))
+    # written so that a NaN fails
+    if not loss_1 <= 1e-6:
         raise RuntimeError(f"{tag} replayed losses off by {loss_1:.3g} "
                            f"relative from the same state")
-    if max(gap_r) > max(2 * max(gap_e) if max(gap_e) > 0 else 1e-6,
-                        update_floor):
-        raise RuntimeError(f"{tag} replayed updates off by {max(gap_r):.3g} "
-                           f"relative, eager-vs-eager {max(gap_e):.3g}")
+    held, got, eager = (("gradients", grad_r, grad_e) if adam
+                        else ("updates", gap_r, gap_e))
+    if not np.isfinite(most(eager)):
+        raise RuntimeError(f"{tag} eager {held} gaps {eager}")
+    if not most(got) <= (2 * most(eager) if most(eager) > 0 else 1e-6):
+        raise RuntimeError(f"{tag} replayed {held} off by {most(got):.3g} "
+                           f"relative, eager-vs-eager {most(eager):.3g}")
+    if adam and not most(adam_ulps) <= 1.0:
+        raise RuntimeError(f"{tag} replayed update {most(adam_ulps):.3g} "
+                           f"float32 spacings from Adam's update of the "
+                           f"replay's own gradients")
 
     # time: eager and graph steps in turns; a profiled replay
     seq = [batches[i % FUSE_K] for i in range(FUSE_ROUND_STEPS)]
@@ -3708,7 +3826,9 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
             "param_rel_eager_eager": par_e,
             "replayed_selections_equal": n_sel,
             "replayed_loss_rel": loss_1, "replayed_update_gap": gap_r,
-            "eager_update_gap": gap_e, "held_after_capture_gib": held,
+            "eager_update_gap": gap_e, "replayed_grad_gap": grad_r,
+            "eager_grad_gap": grad_e, "adam_replay_spacings": adam_ulps,
+            "held_after_capture_gib": held,
             "peak_capture_gib": peak_capture, "reserved_gib": reserved,
             "launches_per_replay": per_step, "traced_per_replay": traced,
             "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
@@ -4318,10 +4438,16 @@ CROP_SETS = (("eval", (1, 37, 75, 512), 300),
              ("atf", (1, 37, 75, 512), 2000),
              ("res101 eval", (1, 38, 75, 1024), 300),
              ("us_daf source", (1, 38, 50, 1024), 128),
-             ("us_daf target", (1, 38, 50, 1024), 300))
+             ("us_daf target", (1, 38, 50, 1024), 300),
+             ("daf target", (1, 37, 75, 512), 300))
+# where ``--only crop`` keeps each train site's crop tensors, else None
+CROP_SITES = None
 # (grid_size, max_pool): Config()'s default (CROP_RESIZE_WITH_MAX_POOL) and
 # the shipped configs' (cfgs/*.yml: no max)
 CROP_MODES = ((14, True), (7, False))
+# the edge sets' modes besides: the grid's extremes (G = 3 drops its last
+# sample row and column; G = 31 and 32 need 62 and 64 footprint rows)
+EDGE_MODES = CROP_MODES + ((2, True), (3, True), (31, False), (32, False))
 TURNS = 2                   # rounds of align and crop steps in turns
 TURN_STEPS = 5              # timed steps a mode in each round
 
@@ -4362,20 +4488,28 @@ def _crop_rois(feat_shape, n, seed):
 def _crop_edge_sets(feat, seed=13):
     """On the map ``feat`` (1, H, W, C): RoIs on and past its edges (their
     clipped points tie), zero-width, zero-height and zero-size RoIs (a
-    window's four samples tie), RoIs naming no image; then a batch-2 map
-    (``feat`` and a second map) with RoIs on both images."""
+    window's four samples tie), RoIs naming no image; a batch-2 map
+    (``feat`` and a second map) with RoIs on both images; maps of two rows
+    and of two columns (every point on the last row or column, or at the
+    clamped anchor); and the map cut to C = 509 channels, which no 16-byte
+    vector divides (the kernels' one-value-at-a-time path)."""
     import torch
 
     _, h, w, _ = feat.shape
     ih, iw = h * 16, w * 16
     rng = np.random.RandomState(seed)
-    edge = torch.tensor([
-        [0, -400, -300, -100, -50], [0, iw + 80, 10, iw + 300, ih - 10],
-        [0, iw - 16, ih - 16, iw + 200, ih + 150],
-        [0, -50, -40, iw + 50, ih + 40], [0, iw - 16, ih - 16, iw - 16,
-                                          ih - 16],
-        [0, 0, 0, 0, 0], [0, 300, 200, 250, 150], [1, 10, 10, 200, 200],
-        [-1, 10, 10, 200, 200]], dtype=torch.float32, device=feat.device)
+    dev = feat.device
+
+    def edge_rois(ih, iw):
+        return torch.tensor([
+            [0, -400, -300, -100, -50], [0, iw + 80, 10, iw + 300, ih - 10],
+            [0, iw - 16, ih - 16, iw + 200, ih + 150],
+            [0, -50, -40, iw + 50, ih + 40], [0, iw - 16, ih - 16, iw - 16,
+                                              ih - 16],
+            [0, 0, 0, 0, 0], [0, 300, 200, 250, 150], [1, 10, 10, 200, 200],
+            [-1, 10, 10, 200, 200]], dtype=torch.float32, device=dev)
+
+    edge = edge_rois(ih, iw)
     n = 48
     x, y = rng.rand(n) * iw, rng.rand(n) * ih
     ext = 16 + rng.rand(n) * 300
@@ -4383,14 +4517,23 @@ def _crop_edge_sets(feat, seed=13):
                                                  x + ext),
                      np.where(np.arange(n) % 3 == 1, y, y + ext)], 1)
     zero[np.arange(n) % 3 == 2, 3:] = zero[np.arange(n) % 3 == 2, 1:3]
+    zero = torch.tensor(zero, dtype=torch.float32, device=dev)
     two = torch.cat([feat, torch.relu(torch.randn(
-        feat.shape, device=feat.device, generator=torch.Generator(
-            device=feat.device).manual_seed(seed)))])
+        feat.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed)))])
+    rows2, cols2 = feat[:, :2].contiguous(), feat[:, :, :2].contiguous()
     return {"edge and past the map": (feat, edge),
-            "zero width, height and size": (feat, torch.tensor(
-                zero, dtype=torch.float32, device=feat.device)),
+            "zero width, height and size": (feat, zero),
             "batch-2 map": (two, torch.cat([_crop_rois(two.shape, 64, seed),
-                                            edge[:4]]))}
+                                            edge[:4]])),
+            "map of 2 rows": (rows2, torch.cat([
+                _crop_rois(rows2.shape, 24, seed + 1),
+                edge_rois(32, iw), zero[:12]])),
+            "map of 2 columns": (cols2, torch.cat([
+                _crop_rois(cols2.shape, 24, seed + 2),
+                edge_rois(ih, 32), zero[:12]])),
+            "C = 509": (feat[..., :509].contiguous(), torch.cat([
+                _crop_rois(feat.shape, 32, seed + 3), edge, zero[:12]]))}
 
 
 def _crop_library(f, rois, kw):
@@ -4563,8 +4706,9 @@ def _crop_entries(label, feat, rois, kw, launches, grad=None,
 
 def _crop_kernel_sets(runs):
     """The kernel sets: CROP_SETS at both CROP_MODES (float32 and bfloat16,
-    forward and backward, timed), then phase 4-like edge sets on the eval
-    map (checked, not timed). Maps are ReLU'd normals, as a backbone's.
+    forward and backward, timed), then the edge sets of ``_crop_edge_sets``
+    on the eval map at EDGE_MODES (checked, not timed). Maps are ReLU'd
+    normals, as a backbone's.
     ``runs`` maps (set label, grid size, max) to the launch counts of the
     phase's run at that shape and mode; a set no run drove (ATF's, and
     those at a mode no run took) has none. Returns (entries, edge
@@ -4585,7 +4729,7 @@ def _crop_kernel_sets(runs):
                                      runs.get((label, g, mp), {}))
     for label, (feat, rois) in _crop_edge_sets(
             maps[CROP_SETS[0][1]]).items():
-        for g, mp in CROP_MODES:
+        for g, mp in EDGE_MODES:
             kw = {"grid_size": g, "max_pool": mp}
             rec = {"set": label, "rois": rois.shape[0], "grid_size": g,
                    "max_pool": mp, "map": list(feat.shape)}
@@ -4735,9 +4879,10 @@ def pool_modes_in_turns(spec, seed):
 
 
 def crop_phase(seed, ims, info, roidb, out_dir):
-    """Phase 5i (``[crop]``): VGG16 eval at both crop modes; the DAF step at
-    ``Config()``'s crop through ``train_phase`` (one card-vs-CPU pair); DAF
-    at align and crop in turns; US-DAF's res101 step and the res101 eval
+    """Phase 5i (``[crop]``): VGG16 eval at both crop modes; the DAF and ATF
+    steps at ``Config()``'s crop through ``train_phase`` (one card-vs-CPU
+    pair each; ATF's sites 256, 256, 2000 and 2000 RoIs); DAF at align and
+    crop in turns; US-DAF's res101 step and the res101 eval
     at res101.yml's crop; then the kernel sets, each row with the launches
     of the run at its shape and mode. Returns (entries, summary)."""
     import torch
@@ -4747,6 +4892,10 @@ def crop_phase(seed, ims, info, roidb, out_dir):
     daf = _method("daf")._replace(tag="crop-daf", ref_pairs=1)
     e, train = train_phase(daf, _crop_cfg(VGG16_CITYSCAPE, True), seed,
                            out_dir)
+    entries += e
+    atf = _method("atf")._replace(tag="crop-atf", ref_pairs=1)
+    e, atf_train = train_phase(atf, _crop_cfg(VGG16_CITYSCAPE, True), seed,
+                               out_dir)
     entries += e
     turns = pool_modes_in_turns(daf, seed)
     us = _method("us_daf")
@@ -4760,6 +4909,8 @@ def crop_phase(seed, ims, info, roidb, out_dir):
     runs = {("eval", 7, False): evals["vgg16 G=7"]["launches"],
             ("eval", 14, True): evals["vgg16 G=14 max"]["launches"],
             ("daf source", 14, True): train["launches"],
+            ("daf target", 14, True): train["launches"],
+            ("atf", 14, True): atf_train["launches"],
             ("res101 eval", 7, False): res_eval["launches"],
             ("us_daf source", 7, False): res["launches"],
             ("us_daf target", 7, False): res["launches"]}
@@ -4772,13 +4923,16 @@ def crop_phase(seed, ims, info, roidb, out_dir):
         + f"; daf {train['ms_per_step']:.3f} ms/step, busy "
         f"{train['busy_ms']:.3f} ms, peak {train['peak_memory_gib']:.2f} "
         f"GiB, fused graph {train['fused']['graph_ms_median']:.3f} ms/step; "
-        f"in turns align {turns['align']['ms_per_step']:.3f} / crop "
+        f"atf {atf_train['ms_per_step']:.3f} ms/step, busy "
+        f"{atf_train['busy_ms']:.3f} ms, peak "
+        f"{atf_train['peak_memory_gib']:.2f} GiB, fused graph "
+        f"{atf_train['fused']['graph_ms_median']:.3f} ms/step; in turns align {turns['align']['ms_per_step']:.3f} / crop "
         f"{turns['crop']['ms_per_step']:.3f} ms/step; us_daf "
         f"{res['ms_per_step']:.3f} ms/step; res101 eval "
         f"{res_eval['ms_per_image']:.3f} ms/image; the phase "
         f"{time.perf_counter() - t0:.1f} s")
     return entries, {"sets": sets, "eval": evals, "daf": train,
-                     "in_turns": turns, "us_daf": res,
+                     "atf": atf_train, "in_turns": turns, "us_daf": res,
                      "res101_eval": res_eval}
 
 

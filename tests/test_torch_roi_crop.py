@@ -181,6 +181,33 @@ def test_roi_crop_backward_matches_jax_vjp(g, max_pool, b, jit_grid):
     _assert_grad(got, want)
 
 
+# the grid's extremes, which the kernels' footprint and staging limits must
+# cover: G = 2 and 3 with the max (3 drops its last sample row and column),
+# G = 31 and 32 without (62 and 64 footprint rows), maps of two rows or two
+# columns (every corner anchored at 0), each with RoIs past the edges and
+# of zero size among `_rois`'
+EXTREMES = [(2, True, 9, 13), (3, True, 9, 13), (31, False, 9, 13),
+            (32, False, 9, 13), (14, True, 2, 13), (14, True, 9, 2),
+            (7, False, 2, 2), (3, True, 2, 7)]
+
+
+@pytest.mark.parametrize("g,max_pool,h,w", EXTREMES)
+def test_roi_crop_extremes_match_jax(g, max_pool, h, w, jit_grid):
+    rs = np.random.RandomState(g * 1000 + h * 10 + w)
+    b, c = 2, 8
+    feat, rois = _maps(rs, b, h, w, c), _rois(rs, b, h, w, n=20)
+    kw = dict(grid_size=g, max_pool=max_pool)
+    p = g // 2 if max_pool else g
+    got = T.roi_crop(torch.from_numpy(feat), torch.from_numpy(rois), **kw)
+    assert got.shape == (len(rois), p, p, c)
+    want = J.roi_crop(jnp.asarray(feat), jnp.asarray(rois), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    cot = rs.randn(len(rois), p, p, c).astype(np.float32)
+    got_g, want_g = _grad_pair(feat, rois, cot, kw)
+    assert np.abs(want_g).max() > 0
+    _assert_grad(got_g, want_g)
+
+
 def _tie_counts(s):
     """Windows of the (R, G, G, C) samples by how many of their four
     entries equal the window's max."""

@@ -25,9 +25,9 @@ For CUDA tensors :func:`roi_crop` is a ``torch.autograd.Function`` over two
 kernels of ``csrc/roi_crop.cu`` (float32 and bfloat16 maps): the forward
 writes (R, C, P, P), the order fc6 flattens in, and :func:`roi_crop` returns
 its (R, P, P, C) view; the backward recomputes each window's maxima from
-the map and adds each tied sample's share into a float32 map gradient with
-atomics (the sum order varies by run), rounded once to a bfloat16 map's
-type. The RoIs get no gradient. CPU tensors run :func:`roi_crop_plain`,
+the map, merges the tied samples' shares over each RoI's footprint and
+adds them into a float32 map gradient with atomics (the sum order over
+RoIs varies by run), rounded once to a bfloat16 map's type. The RoIs get no gradient. CPU tensors run :func:`roi_crop_plain`,
 which autograd differentiates: that is the plain version of the backward.
 :func:`dense_grid_sample` is plain PyTorch only (the JAX package has no
 caller of it outside its tests).
