@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, drive, check.
 
     python3 chip_smoke.py [--seed 0] [--out output/chip_smoke]
-    python3 chip_smoke.py --only optim|crop   # one phase alone
+    python3 chip_smoke.py --only optim|crop|coco   # one phase alone
 
 Phases, each ending the run nonzero on failure:
 
@@ -69,6 +69,18 @@ Phases, each ending the run nonzero on failure:
    RoIs, and phase 4's edge and regime sets, float32 and bfloat16, forward
    and backward, at P = 7, 3 and 15) and its two NMS problems exact, as in
    phase 4.
+   4c. COCO eval (``[coco]`` lines, ``coco_phase``): a synthetic COCO
+   instances file (8 images of 640x480, COCO's 80 sparse category ids, a
+   crowd box) written to a temporary directory and read by
+   ``data.coco.COCODetection``; full-width VGG16 at ``--dataset coco``'s
+   config, 81 classes, random weights from ``--seed``; the images in
+   memory at 600x800 through ``eval_engine.detect_chunks`` at eval batch 1
+   and 4 (ms/image, launch counts exact), one profiled pass (busy share),
+   the 12 COCO stats of ``evaluate_detections``; the card against the CPU
+   stage by stage; RoIAlignAvg on the 1x37x50x512 map bit-equal and both
+   NMS problems (6000 -> 300, 81 x 300 -> 100) exact, timed; the
+   evaluator on jittered ground truth equal to the stats pinned from the
+   CPU, and AP 1.0 on the exact ground truth.
 5. Train: the full-width DAF model (``tllod_torch.methods.daf``, random
    weights from ``--seed``) takes 2 warm-up and 10 timed SGD steps through
    ``train.train_step`` on one source and one target 600x1200 image with
@@ -153,9 +165,11 @@ Phases, each ending the run nonzero on failure:
    state: draws, proposal NMS keep lists, sampled RoIs and labels and
    ``fg_cnt`` equal, losses within 1e-6, the replay's update within twice
    the second eager step's distance from the first (under Adam: the
-   replay's gradients within twice the largest gap among 4 eager steps,
-   and its update within one float32 spacing of Adam applied to those
-   gradients). A ``torch.profiler``
+   gradients of a second graph, captured with cuDNN deterministic and the
+   RoIAlignAvg backward plain, within twice the largest gap among 4 eager
+   steps taken so, where they repeat bit for bit, and the kernel replay's
+   update within one float32 spacing of Adam applied to its gradients). A
+   ``torch.profiler``
    trace of one replay counts each kernel's launches by name; eager and
    graph ms/step in turns (3 rounds of 10 steps each way), the replay's
    busy ms, peak memory. A ``[fused] summary`` line; each path's summary
@@ -241,6 +255,7 @@ or the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -254,8 +269,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# cfgs/vgg16.yml and the cityscape dataset set_cfgs, as KEY VALUE pairs
-VGG16_CITYSCAPE = [
+# cfgs/vgg16.yml, as KEY VALUE pairs
+VGG16_YML = [
     "EXP_DIR", "vgg16",
     "TRAIN.HAS_RPN", "True",
     "TRAIN.BBOX_NORMALIZE_TARGETS_PRECOMPUTED", "True",
@@ -268,6 +283,9 @@ VGG16_CITYSCAPE = [
     "TEST.HAS_RPN", "True",
     "POOLING_MODE", "align",
     "CROP_RESIZE_WITH_MAX_POOL", "False",
+]
+# and the cityscape dataset set_cfgs
+VGG16_CITYSCAPE = VGG16_YML + [
     "ANCHOR_SCALES", "[4,8,16,32]",
     "ANCHOR_RATIOS", "[0.5,1,2]",
     "MAX_NUM_GT_BOXES", "50",
@@ -448,6 +466,7 @@ def roi_reuse_stats(feat_shape, rois, out_size, spatial_scale):
     y0i = torch.clamp(torch.clamp(torch.floor(ys), max=h - 2.0).long(), 0,
                       h - 2)
     bi = rois[:, 0].long()
+    bi = torch.where(bi < 0, bi + b, bi)
     has = (bi >= 0) & (bi < b)
     inside = (has[:, None, None] & ((ys >= 0) & (ys < h))[:, :, None]
               & ((xs >= 0) & (xs < w))[:, None, :])          # (R, S, S)
@@ -474,10 +493,10 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(REPO, "output",
                                                   "chip_smoke"),
                     help="directory for the kernels JSON and the trace")
-    ap.add_argument("--only", choices=("optim", "crop"),
-                    help="build the kernels, then run phase 5f or 5i alone "
-                         "and print its summary; no other phase and no ok "
-                         "line. crop also keeps each train site's crop "
+    ap.add_argument("--only", choices=("optim", "crop", "coco"),
+                    help="build the kernels, then run phase 5f, 5i or 4c "
+                         "alone and print its summary; no other phase and "
+                         "no ok line. crop also keeps each train site's crop "
                          "tensors under OUT/crop_sites, for roi_pool_ab.py "
                          "--op crop --sites")
     args = ap.parse_args()
@@ -511,7 +530,8 @@ def main() -> int:
         out = optim_phase(cfg, args.seed, args.out)["fused_adam"]
         log("[optim] alone: " + json.dumps({k: out[k] for k in (
             "replayed_update_gap", "eager_update_gap", "replayed_grad_gap",
-            "eager_grad_gap", "adam_replay_spacings")}))
+            "eager_grad_gap", "kernel_replayed_grad_gap",
+            "kernel_eager_grad_gap", "adam_replay_spacings")}))
         return 0
     if args.only == "crop":
         global CROP_SITES
@@ -520,6 +540,11 @@ def main() -> int:
         out = crop_phase(args.seed, *make_images(
             N_IMAGES, args.seed, cfg.PIXEL_MEANS), args.out)[1]
         log("[crop] alone: " + json.dumps(out, default=str))
+        return 0
+    if args.only == "coco":
+        entries, out = coco_phase(args.seed, args.out)
+        log("[coco] alone: " + json.dumps({"kernels": entries, **out},
+                                          default=str))
         return 0
 
     # ---- 2. main path ----
@@ -555,6 +580,9 @@ def main() -> int:
     res_kernels, res_eval = resnet_eval_phase(args.seed, args.out)
     kernels += res_kernels
     torch.cuda.empty_cache()
+    # ---- 4c. [coco]: COCO-protocol eval at 81 classes, 600x800 ----
+    coco_kernels, coco = coco_phase(args.seed, args.out)
+    kernels += coco_kernels
 
     # ---- 5. train: the DAF, MAF, ATF, PT-MAF, PA-ATF, US-DAF, MAD and IDF
     #         steps, their kernels, card vs CPU, profile; then IDF's eval
@@ -635,7 +663,7 @@ def main() -> int:
         f"in {o['train_loop_s']:.1f} s" for o in overfit))
     with open(os.path.join(args.out, "chip_smoke_kernels.json"), "w") as f:
         json.dump({"kernels": kernels, "per_image_ms": per_image_ms,
-                   "res101_eval": res_eval,
+                   "res101_eval": res_eval, "coco": coco,
                    "train": summaries.pop("daf"), "methods": summaries,
                    "faster_rcnn": supervised, "idf_eval": idf_eval,
                    "nms_adversarial": adversarial, "bf16": bf16,
@@ -664,7 +692,7 @@ def _close(name, got, want, rtol, atol):
     return err
 
 
-def check_reference(model, cfg, seed: int) -> None:
+def check_reference(model, cfg, seed: int, tag: str = "reference") -> None:
     """The card against the CPU plain path on a 160x320 image, stage by
     stage, each stage fed the card's own output of the stage before, so a
     score tie broken differently cannot change what is compared."""
@@ -735,7 +763,7 @@ def check_reference(model, cfg, seed: int) -> None:
             raise RuntimeError("reference postprocess: kept sets differ")
         errs["detections"] = max(_close("det boxes", dg[0], dc[0], 1e-5, 1e-3),
                                  _close("det scores", dg[1], dc[1], 0, 0))
-    log(f"[reference] 160x320 image, {int(valid.sum())} rois, "
+    log(f"[{tag}] 160x320 image, {int(valid.sum())} rois, "
         f"{int(dg[2].sum())} detections; card vs CPU max err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
 
@@ -900,22 +928,36 @@ def _pool_op(op):
             "roi_align_avg_grad_copy")
 
 
+def _equal_nan(got, want):
+    """(bit-equal, max error): the same shape, NaN at the same positions
+    (a RoI whose batch index names no image) and ``torch.equal`` on the
+    rest; the error is over the non-NaN positions."""
+    import torch
+
+    nan = torch.isnan(got)
+    if got.shape != want.shape or not torch.equal(nan, torch.isnan(want)):
+        return False, float("inf")
+    g, w = got[~nan], want[~nan]
+    err = (g.float() - w.float()).abs().max().item() if g.numel() else 0.0
+    return torch.equal(g, w), err
+
+
 def _forward_check(label, feat, rois, kw, op="roi_align_avg"):
-    """The forward kernel of ``op`` against its plain version, bit-equal
-    (``torch.equal``) in float32 and in bfloat16: both sample (and average
-    or take the max) in float32 with the same roundings and round a
-    bfloat16 output once (RoICrop's stays float32, as JAX's); and its (R,
-    P, P, C) output the view of an (R, C, P, P) tensor, so fc6 flattens it
-    with no copy. Returns the kernel's output and the max error."""
+    """The forward kernel of ``op`` against its plain version, bit-equal in
+    float32 and in bfloat16 (``_equal_nan``: NaN at the same positions,
+    ``torch.equal`` elsewhere): both sample (and average or take the max)
+    in float32 with the same roundings and round a bfloat16 output once
+    (RoICrop's stays float32, as JAX's); and its (R, P, P, C) output the
+    view of an (R, C, P, P) tensor, so fc6 flattens it with no copy.
+    Returns the kernel's output and the max error."""
     import torch
 
     fwd, plain, _, _ = _pool_op(op)
     got = fwd(feat, rois, **kw)
     want = plain(feat, rois, **kw)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item() if got.numel() \
-        else 0.0
-    if got.shape != want.shape or not torch.equal(got, want):
+    same, err = _equal_nan(got, want)
+    if not same:
         raise RuntimeError(f"{op} {label} {feat.dtype}: max err {err}")
     if not got.permute(0, 3, 1, 2).is_contiguous():
         raise RuntimeError(f"{op} {label}: not an (R, C, P, P) tensor")
@@ -953,7 +995,8 @@ def _roi_align_entry(feat, rois, kw, dtype, launches, label=None):
 
 def _edge_rois(feat, kw):
     """RoIs outside the map, on its last row and column, degenerate, and
-    naming no image."""
+    by batch index: past the end and below -B (NaN where a sample is in the
+    map), and wrapped from below (-1, -B)."""
     import torch
 
     b, h, w, _ = feat.shape
@@ -967,7 +1010,10 @@ def _edge_rois(feat, kw):
         [0, 100, 100, 100, 100],                          # zero extent
         [0, 300, 200, 250, 150],                          # x2 < x1
         [b, 10, 10, 200, 200],                            # no such image
-        [-1, 10, 10, 200, 200],
+        [b, -60, -40, 100, 120],                          # part outside
+        [-b - 1, 10, 10, 200, 200],
+        [-1, 10, 10, 200, 200],                           # image b - 1
+        [-b, 10, 10, 200, 200],                           # image 0
     ], dtype=torch.float32, device=feat.device)
 
 
@@ -3430,7 +3476,7 @@ def overfit_phase(seed, out_dir, bf16):
 
 
 FUSE_K = 4                  # fused steps held to eager steps from one state
-ADAM_EAGER = 4              # eager steps a state under Adam, for the spread
+ADAM_EAGER = 4              # repeatable eager steps a state under Adam
 FUSE_ROUNDS, FUSE_ROUND_STEPS = 3, 10     # timed rounds each way, in turns
 # each kernel's trace name and the launch counter it is credited to
 TRACE_KERNELS = (("roi_align_avg_forward_kernel", "roi_align_avg"),
@@ -3493,6 +3539,36 @@ def _trace_counts(prof):
     return counts
 
 
+@contextlib.contextmanager
+def _repeatable_step():
+    """While entered, a DAF train step's gradients repeat bit for bit on
+    the card: cuDNN takes its deterministic algorithms, and the RoIAlignAvg
+    backward kernel, whose atomics add the RoIs of a map pixel in an order
+    that can change from run to run, gives way to autograd through its
+    plain version (``roi_align_avg_plain``: on the card its scatter sorts
+    the indices, then sums in order). Phase 5f's Adam gradient gate runs
+    under it; the kernel's launches are not counted there."""
+    import torch
+    import tllod_torch.ops.roi_align as ra
+
+    def backward(grad_out, rois, feats_shape, *, out_size, spatial_scale):
+        f = torch.zeros(feats_shape, device=grad_out.device,
+                        requires_grad=True)
+        with torch.enable_grad():
+            out = ra.roi_align_avg_plain(f, rois, out_size=out_size,
+                                         spatial_scale=spatial_scale)
+        (g,) = torch.autograd.grad(out, f, grad_out.float())
+        return g
+
+    saved = ra.roi_align_avg_backward, torch.backends.cudnn.deterministic
+    ra.roi_align_avg_backward = backward
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        ra.roi_align_avg_backward, torch.backends.cudnn.deterministic = saved
+
+
 def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
                 out_dir):
     """Phase 5d (``[fused]``): ``train.TrainStepMulti``, the CUDA-graph
@@ -3527,14 +3603,21 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     by a share of lr, and the update gaps of two eager steps bear no fixed
     ratio to a replay's. Adam's replay is held instead by its gradients
     (the clipped gradients the update read, L2 over all trained
-    parameters): as far from the first eager step's as twice the largest
-    gap between any two of ADAM_EAGER eager steps from the same state at
-    most (1e-6 where that is 0); Adam's gradients differ between runs by a
-    few atomic or cuDNN sums (1e-8-1e-6, the SGD paths' by ~1e-4), so one
-    pair's gap is too unsteady a yardstick. And by its update: Adam
-    applied eagerly to those same gradients from the same state (moments,
-    count) gives every parameter within one float32 spacing of the
-    replay's. Every reading is printed, and a NaN in any fails its gate.
+    parameters), taken where they repeat: a second graph of the step is
+    captured and replayed under ``_repeatable_step`` (cuDNN's
+    deterministic algorithms, the RoIAlignAvg backward as its plain
+    version), and its gradients must lie as far from the first of
+    ADAM_EAGER eager steps under it, from the same state, as twice the
+    largest gap between any two of those at most (1e-6 where that is 0).
+    The kernel path's gradients differ between runs by where a few atomic
+    and cuDNN sums land (1e-11-3e-6, in a handful of discrete outcomes a
+    state): a yardstick of a few such draws failed about one run in 20,
+    so the kernel path's gradient gaps (its replay and its second eager
+    step against its first) are printed, not held. And by its update: Adam
+    applied eagerly to the kernel replay's own gradients from the same
+    state (moments, count) gives every parameter within one float32
+    spacing of the replay's. Every reading is printed, and a NaN in any
+    fails its gate.
 
     A ``torch.profiler`` trace of one replay counts ``per_step`` launches
     of each kernel by name. Then eager against graph ms/step in turns,
@@ -3554,12 +3637,19 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     per_step = {k: n for k, n in per_step.items() if n}
     adam = isinstance(opt, Adam)
     graph_grads = {}    # the captured step's own gradient tensors
+    det_grads = {}      # the same, of the graph captured repeatable
 
     def keep(rng):
         if adam and torch.cuda.is_current_stream_capturing():
             graph_grads.update((n, p.grad) for n, p in
                                opt.named_params().items())
         return {"draws": rng.drawn, "sel": sel.pop()}
+
+    def keep_det(rng):
+        if torch.cuda.is_current_stream_capturing():
+            det_grads.update((n, p.grad) for n, p in
+                             opt.named_params().items())
+        return {"draws": rng.drawn}
 
     def save():
         return ({k: v.clone() for k, v in model.state_dict().items()},
@@ -3692,8 +3782,20 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
             opt.clip_norm = clip
         return trained()
 
+    if adam:
+        # a second graph of the step, captured repeatable, for the gradient
+        # gate: first sight, capture and one replay, then back to the state
+        state = save()
+        with _repeatable_step():
+            det_runner = TrainStepMulti(model, loss_fn, opt, seed=seed,
+                                        keep=keep_det)
+            det_runner(opt.count, batches[:2])
+        restore(state)
+        torch.cuda.synchronize()
+        del state
     n_sel, loss_1 = 0, 0.0
-    gap_e, gap_r, grad_e, grad_r, adam_ulps = [], [], [], [], []
+    gap_e, gap_r, adam_ulps = [], [], []
+    grad_e, grad_r, kgrad_e, kgrad_r = [], [], [], []
     runner.kept.clear()
     with sel:
         for i, args in enumerate(batches):
@@ -3701,16 +3803,28 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
             before = trained()
             m_e, k_e = eager_step(args, i)
             p_e = trained()
-            g_eager = [grads()] if adam else []   # ADAM_EAGER steps' grads
+            g_eager = [grads()] if adam else []
             restore(state)
             m_e2, k_e2 = eager_step(args, i)
             p_e2 = trained()
             g_eager += [grads()] if adam else []
             restore(state)
-            for _ in range(ADAM_EAGER - 2 if adam else 0):
-                eager_step(args, i)
-                g_eager.append(grads())
-                restore(state)
+            if adam:
+                # ADAM_EAGER repeatable eager steps, then the repeatable
+                # graph's replay, each from the state
+                g_det = []
+                with _repeatable_step():
+                    for _ in range(ADAM_EAGER):
+                        eager_step(args, i)
+                        g_det.append(grads())
+                        restore(state)
+                    det_runner(opt.count, [args])
+                    g_dr = {n: t.clone() for n, t in det_grads.items()}
+                    restore(state)
+                grad_e.append(most([gap(a, b) for a, b in
+                                    itertools.combinations(g_det, 2)]))
+                grad_r.append(gap(g_dr, g_det[0]))
+                del g_det, g_dr
             m_r = runner(opt.count, [args])
             k_r = runner.kept.pop()
             p_r = trained()
@@ -3734,9 +3848,8 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
             gap_r.append(gap(p_r, p_e, before))
             if adam:
                 g_r = {n: t.clone() for n, t in graph_grads.items()}
-                grad_e.append(most([gap(a, b) for a, b in
-                                    itertools.combinations(g_eager, 2)]))
-                grad_r.append(gap(g_r, g_eager[0]))
+                kgrad_e.append(gap(g_eager[1], g_eager[0]))
+                kgrad_r.append(gap(g_r, g_eager[0]))
                 after = save()
                 adam_ulps.append(spacings(p_r, adam_on(g_r, state)))
                 restore(after)
@@ -3750,8 +3863,12 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
         f"all trained parameters: update, replay "
         f"{', '.join(f'{g:.3g}' for g in gap_r)}, second eager step "
         f"{', '.join(f'{g:.3g}' for g in gap_e)}"
-        + (f"; gradients, replay {', '.join(f'{g:.3g}' for g in grad_r)}, "
-           f"largest gap of {ADAM_EAGER} eager steps "
+        + (f"; gradients, replay {', '.join(f'{g:.3g}' for g in kgrad_r)}, "
+           f"second eager step {', '.join(f'{g:.3g}' for g in kgrad_e)}; "
+           f"repeatable (cuDNN deterministic, the RoIAlignAvg backward "
+           f"plain) gradients, replay "
+           f"{', '.join(f'{g:.3g}' for g in grad_r)}, largest gap of "
+           f"{ADAM_EAGER} eager steps "
            f"{', '.join(f'{g:.3g}' for g in grad_e)}; Adam of the replay's "
            f"gradients from its state against the replay, float32 spacings "
            f"at most {', '.join(f'{u:.3g}' for u in adam_ulps)}"
@@ -3827,7 +3944,9 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
             "replayed_selections_equal": n_sel,
             "replayed_loss_rel": loss_1, "replayed_update_gap": gap_r,
             "eager_update_gap": gap_e, "replayed_grad_gap": grad_r,
-            "eager_grad_gap": grad_e, "adam_replay_spacings": adam_ulps,
+            "eager_grad_gap": grad_e, "kernel_replayed_grad_gap": kgrad_r,
+            "kernel_eager_grad_gap": kgrad_e,
+            "adam_replay_spacings": adam_ulps,
             "held_after_capture_gib": held,
             "peak_capture_gib": peak_capture, "reserved_gib": reserved,
             "launches_per_replay": per_step, "traced_per_replay": traced,
@@ -4492,7 +4611,10 @@ def _crop_edge_sets(feat, seed=13):
     (``feat`` and a second map) with RoIs on both images; maps of two rows
     and of two columns (every point on the last row or column, or at the
     clamped anchor); and the map cut to C = 509 channels, which no 16-byte
-    vector divides (the kernels' one-value-at-a-time path)."""
+    vector divides (the kernels' one-value-at-a-time path). Batch indices:
+    1 and -2 name no image of a 1-image map (NaN), -1 wraps to image 0; on
+    the batch-2 map, 2 and -3 name none, -1 and -2 wrap to images 1 and
+    0."""
     import torch
 
     _, h, w, _ = feat.shape
@@ -4507,7 +4629,8 @@ def _crop_edge_sets(feat, seed=13):
             [0, -50, -40, iw + 50, ih + 40], [0, iw - 16, ih - 16, iw - 16,
                                               ih - 16],
             [0, 0, 0, 0, 0], [0, 300, 200, 250, 150], [1, 10, 10, 200, 200],
-            [-1, 10, 10, 200, 200]], dtype=torch.float32, device=dev)
+            [-1, 10, 10, 200, 200], [-2, 10, 10, 200, 200]],
+            dtype=torch.float32, device=dev)
 
     edge = edge_rois(ih, iw)
     n = 48
@@ -4524,8 +4647,10 @@ def _crop_edge_sets(feat, seed=13):
     rows2, cols2 = feat[:, :2].contiguous(), feat[:, :, :2].contiguous()
     return {"edge and past the map": (feat, edge),
             "zero width, height and size": (feat, zero),
-            "batch-2 map": (two, torch.cat([_crop_rois(two.shape, 64, seed),
-                                            edge[:4]])),
+            "batch-2 map": (two, torch.cat([
+                _crop_rois(two.shape, 64, seed), edge[:4],
+                torch.tensor([[k, 10, 10, 200, 200] for k in (2, -1, -2, -3)],
+                             dtype=torch.float32, device=dev)])),
             "map of 2 rows": (rows2, torch.cat([
                 _crop_rois(rows2.shape, 24, seed + 1),
                 edge_rois(32, iw), zero[:12]])),
@@ -4934,6 +5059,207 @@ def crop_phase(seed, ims, info, roidb, out_dir):
     return entries, {"sets": sets, "eval": evals, "daf": train,
                      "atf": atf_train, "in_turns": turns, "us_daf": res,
                      "res101_eval": res_eval}
+
+
+# ---- [coco]: COCO-protocol eval at COCO's 81 classes ----
+
+# COCO's 80 category ids: 1-90 without the ten the real set leaves out
+COCO_CAT_IDS = tuple(i for i in range(1, 91)
+                     if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+COCO_IMAGES = 8              # synthetic images of the [coco] phase
+COCO_HW = (480, 640)         # COCO's common image; 600x800 at scale 600
+COCO_SET_SEED = 16           # the set is fixed, the weights follow --seed
+# the 12 stats of the port's COCO evaluator on ``coco_hits`` of the set,
+# computed on the CPU; tests/test_torch_coco.py holds them to the JAX
+# package's evaluator on the same data
+COCO_HITS_STATS = {
+    "AP": 0.5494876987698769, "AP50": 0.6390896232480391,
+    "AP75": 0.5974229565813723, "AP_small": 0.5,
+    "AP_medium": 0.5036578657865787, "AP_large": 0.788973897389739,
+    "AR_1": 0.33909090909090905, "AR_10": 0.8827272727272728,
+    "AR_100": 0.8827272727272728, "AR_small": 0.5,
+    "AR_medium": 0.7555555555555556, "AR_large": 0.9333333333333332}
+
+
+def coco_annotations(n, seed):
+    """A COCO instances dict of ``n`` 640x480 images (sparse image ids),
+    COCO's 80 categories by their sparse ids, 2-7 boxes an image with
+    integer xywh from 8 to 300 px a side (small, medium and large), classes
+    drawn from the first 12 categories so they recur, and one crowd box on
+    the first image; standard library and numpy only."""
+    rng = np.random.RandomState(seed)
+    h, w = COCO_HW
+    images, anns = [], []
+    for k in range(n):
+        iid = 139 + 1000 * k
+        images.append({"id": iid, "file_name": f"{iid:012d}.jpg",
+                       "width": w, "height": h})
+        for j in range(rng.randint(2, 8) + (k == 0)):
+            bw, bh = int(rng.randint(8, 300)), int(rng.randint(8, 240))
+            x, y = int(rng.randint(0, w - bw)), int(rng.randint(0, h - bh))
+            anns.append({"id": len(anns) + 1, "image_id": iid,
+                         "category_id": int(COCO_CAT_IDS[rng.randint(12)]),
+                         "bbox": [x, y, bw, bh], "area": float(bw * bh),
+                         "iscrowd": int(k == 0 and j == 0)})
+    cats = [{"id": c, "name": f"category_{c}", "supercategory": "synthetic"}
+            for c in COCO_CAT_IDS]
+    return {"images": images, "annotations": anns, "categories": cats}
+
+
+def render_coco_images(ann, pixel_means, seed):
+    """The images of ``ann`` as the eval loader feeds them: noise with each
+    box a filled rectangle, at shortest side 600 (600x800), mean-subtracted
+    → (im_data, im_info)."""
+    rng = np.random.RandomState(seed)
+    h, w = COCO_HW
+    scale = 600.0 / h
+    sh, sw = 600, int(round(w * scale))
+    ims = np.empty((len(ann["images"]), sh, sw, 3), np.float32)
+    for k, im_rec in enumerate(ann["images"]):
+        im = rng.randint(0, 256, (sh, sw, 3)).astype(np.float32)
+        for a in ann["annotations"]:
+            if a["image_id"] == im_rec["id"]:
+                x, y, bw, bh = (int(round(v * scale)) for v in a["bbox"])
+                im[y:y + bh, x:x + bw] = rng.randint(0, 256, 3)
+        ims[k] = im - np.asarray(pixel_means, np.float32)
+    info = np.tile(np.array([[sh, sw, scale]], np.float32), (len(ims), 1))
+    return ims, info
+
+
+def coco_hits(roidb, num_classes, seed):
+    """all_boxes that hit: each gt box jittered by 3 px, and a random box of
+    its class (8-158 px a side) beside it, each with a random score."""
+    rng = np.random.RandomState(seed)
+    hits = [[np.zeros((0, 5), np.float32) for _ in roidb]
+            for _ in range(num_classes)]
+    for i, e in enumerate(roidb):
+        for box, c in zip(e["boxes"], e["gt_classes"]):
+            det = np.append(box + rng.randn(4) * 3, rng.rand())
+            x, y = rng.rand(2) * 400
+            fw, fh = rng.rand(2) * 150 + 8
+            fp = [x, y, x + fw, y + fh, rng.rand()]
+            hits[c][i] = np.vstack([hits[c][i], det, fp]).astype(np.float32)
+    return hits
+
+
+def coco_exact(roidb, num_classes):
+    """all_boxes equal to the (non-crowd) ground truth, score 1."""
+    out = [[np.zeros((0, 5), np.float32) for _ in roidb]
+           for _ in range(num_classes)]
+    for i, e in enumerate(roidb):
+        for box, c in zip(e["boxes"], e["gt_classes"]):
+            out[c][i] = np.vstack([out[c][i], np.append(box, 1.0)]).astype(
+                np.float32)
+    return out
+
+
+def coco_phase(seed, out_dir):
+    """Phase 4c (``[coco]``): COCO-protocol eval at COCO's 81 classes. A
+    synthetic instances file (``coco_annotations``) written to a temporary
+    directory and read by ``data.coco.COCODetection``; full-width VGG16 at
+    ``--dataset coco``'s config (``cfgs/vgg16.yml`` and the coco set_cfgs,
+    81 classes, a 324-wide box regression), random weights from ``seed``;
+    the images in memory at 600x800 through ``eval_engine.detect_chunks``
+    at eval batch 1 and 4 (``time_eval``: RoIAlignAvg once and NMS twice a
+    chunk, nothing else), one profiled pass, then
+    ``COCODetection.evaluate_detections`` (the 12 stats). Gates: the card
+    against the CPU stage by stage (``check_reference``); the RoIAlignAvg
+    forward on one image's 1x37x50x512 map and 300 RoIs bit-equal to the
+    plain version; its proposal (6000 -> 300) and postprocess (81 x 300 ->
+    100 @ 0.3: the 80 classes and the background row, computed and
+    dropped, in one launch) NMS exact against the plain version and
+    ``nms_numpy``; the
+    evaluator on jittered ground truth with false positives equal to
+    COCO_HITS_STATS, and AP 1.0 on the exact ground truth. Returns
+    (kernel entries, summary)."""
+    import tempfile
+    import torch
+    from tllod_torch.cli.common import DATASET_MAP
+    from tllod_torch.config import Config, cfg_from_list
+    from tllod_torch.data.coco import COCODetection
+    from tllod_torch.eval_engine import detect_chunks
+    from tllod_torch.models.faster_rcnn import FasterRCNN
+
+    cfg = cfg_from_list(Config(),
+                        VGG16_YML + list(DATASET_MAP["coco"]["set_cfgs"]))
+    ann = coco_annotations(COCO_IMAGES, COCO_SET_SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "instances_synth2014.json")
+        with open(path, "w") as f:
+            json.dump(ann, f)
+        ds = COCODetection("coco_synth", os.path.join(tmp, "images"), path)
+    roidb = ds.gt_roidb()
+    ims, info = render_coco_images(ann, cfg.PIXEL_MEANS, COCO_SET_SEED + 1)
+    nc, n = ds.num_classes, len(ims)
+    model = FasterRCNN(nc, cfg, "vgg16", device="cuda", seed=seed)
+    log(f"[coco] vgg16 {sum(p.numel() for p in model.parameters())} params, "
+        f"{nc} classes (category ids {COCO_CAT_IDS[0]}..{COCO_CAT_IDS[-1]}, "
+        f"{len(COCO_CAT_IDS)} of them), {n} images {ims.shape[1]}x"
+        f"{ims.shape[2]}, {sum(len(e['boxes']) for e in roidb)} gt boxes "
+        f"and {sum(a['iscrowd'] for a in ann['annotations'])} crowd, TEST "
+        f"{cfg.TEST.RPN_PRE_NMS_TOP_N}->{cfg.TEST.RPN_POST_NMS_TOP_N} rois")
+    torch.backends.cudnn.allow_tf32 = True          # the defaults, as eval
+    per_image, passes, launches, quality = time_eval(
+        model, cfg, ims, info, roidb, ds.classes, (1, 4), "coco")
+    chunks = REPS * (n + -(-n // 4))
+    if launches != {"roi_align_avg": chunks, "nms": 2 * chunks}:
+        raise RuntimeError(f"coco eval launched {launches}, roi_align_avg "
+                           f"{chunks} and nms {2 * chunks} expected")
+    busy, wall, kinds = _profile_window(
+        lambda: detect_chunks(model, chunks_of(ims, info, 1), cfg,
+                              num_classes=nc),
+        f"coco eval_bs 1, {n} images",
+        os.path.join(out_dir, "chip_smoke_coco_eval_trace.json"))
+    res = detect_chunks(model, chunks_of(ims, info, 4), cfg, num_classes=nc)
+    stats = ds.evaluate_detections(
+        [[res[i][c] for i in range(n)] for c in range(nc)],
+        os.path.join(out_dir, "coco"))
+    if not all(np.isfinite(v) and -1.0 <= v <= 1.0 for v in stats.values()):
+        raise RuntimeError(f"coco stats {stats}")
+    hits = ds.evaluate_detections(coco_hits(roidb, nc, COCO_SET_SEED), "")
+    bad = {k: (v, COCO_HITS_STATS[k]) for k, v in hits.items()
+           if not abs(v - COCO_HITS_STATS[k]) <= 1e-12}
+    if bad or hits["AP"] <= 0.2:
+        raise RuntimeError(f"coco evaluator on jittered gt: {bad or hits}, "
+                           f"{COCO_HITS_STATS} on the CPU")
+    exact = ds.evaluate_detections(coco_exact(roidb, nc), "")
+    if not (exact["AP"] == exact["AP50"] == exact["AP75"] == 1.0):
+        raise RuntimeError(f"coco evaluator on the exact gt: {exact}")
+    log(f"[coco] stats (random weights): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stats.items()))
+    log(f"[coco] evaluator on jittered gt with false positives equal to the "
+        f"CPU's (AP {hits['AP']:.6f}, AP50 {hits['AP50']:.6f}); on the exact "
+        f"gt AP {exact['AP']}")
+
+    torch.backends.cudnn.allow_tf32 = False
+    check_reference(model, cfg, seed, tag="coco-reference")
+    calls = _capture(model, ims[:1], info[:1])
+    (feat, rois), kw = calls["pool"][0]
+    (pb, ps), pkw = calls["rpn_nms"][0]
+    (cb, cs), ckw = calls["cls_nms"][0]
+    if (tuple(feat.shape) != (1, 37, 50, 512) or rois.shape[0] != 300
+            or tuple(ps.shape) != (1, 6000) or tuple(cs.shape) != (nc, 300)
+            or ckw["max_output"] != 100 or ckw["iou_threshold"] != 0.3):
+        raise RuntimeError(f"coco shapes: map {tuple(feat.shape)}, "
+                           f"{rois.shape[0]} rois, proposal NMS "
+                           f"{tuple(ps.shape)}, postprocess NMS "
+                           f"{tuple(cs.shape)} {ckw}")
+    entries = [_roi_align_entry(feat, rois, kw, torch.float32,
+                                launches["roi_align_avg"],
+                                label="coco eval"),
+               _nms_entry("coco proposal", pb, ps, pkw, launches["nms"]),
+               _nms_entry("coco postprocess", cb, cs, ckw, launches["nms"])]
+    del model
+    torch.cuda.empty_cache()
+    summary = {"ms_per_image": per_image, "pass_ms_per_image": passes,
+               "launches": launches, "detections": quality,
+               "busy_ms": busy, "profiled_wall_ms": wall,
+               "busy_ms_by_kind": kinds, "stats": stats,
+               "hits_stats": hits, "exact_stats": exact}
+    log(f"[coco] summary: eval_bs 1 {per_image[1]:.3f}, eval_bs 4 "
+        f"{per_image[4]:.3f} ms/image; busy {busy:.3f} of {wall:.3f} ms "
+        f"({100 * busy / wall:.1f}%) a pass of {n}; AP {stats['AP']:.4f}")
+    return entries, summary
 
 
 if __name__ == "__main__":

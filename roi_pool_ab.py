@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""RoIPool or RoICrop device times of two checkouts of this repository, in
-turns on one NVIDIA GPU.
+"""RoIPool, RoICrop or RoIAlignAvg device times of two checkouts of this
+repository, in turns on one NVIDIA GPU.
 
-    python3 roi_pool_ab.py OLD_CHECKOUT [NEW_CHECKOUT] [--op pool|crop]
-                           [--sites DIR] [--seed 0]
+    python3 roi_pool_ab.py OLD_CHECKOUT [NEW_CHECKOUT]
+                           [--op pool|crop|align] [--sites DIR] [--seed 0]
 
 ``NEW_CHECKOUT`` defaults to the checkout that holds this script. Each
 checkout's ``tllod_torch.ops.roi_pool`` (``--op crop``:
-``tllod_torch.ops.roi_crop``) runs in a process of its own, which builds
-that checkout's ``csrc/roi_pool.cu`` (``roi_crop.cu``); the processes go
+``tllod_torch.ops.roi_crop``; ``--op align``: ``tllod_torch.ops.roi_align``)
+runs in a process of its own, which builds that checkout's
+``csrc/roi_pool.cu`` (``roi_crop.cu``, ``roi_align.cu``); the processes go
 old, new, new, old. Every process makes the same inputs from ``--seed``.
 
 ``--op pool`` (the default):
@@ -43,6 +44,15 @@ the layout it came in), checked and timed the same way, each with the
 share of its (RoI, sample) pairs whose gradient is 0 in every channel.
 ``--unchecked`` skips the checks, to time a variant of a kernel with one
 of its phases taken out (wrong by design).
+
+``--op align``: RoIAlignAvg at the eval path's batch-1 shape (the ReLU'd
+1x37x75x512 map, the 300 proposals of ``--op pool``'s eval site, P = 7),
+with a float32 and a bfloat16 map: ``roi_align_avg`` ``torch.equal`` to
+``roi_align_avg_plain``, ``roi_align_avg_backward`` within
+``chip_smoke._grad_close`` of autograd through it; ``fwd_ms`` the forward
+wrapper, ``bwd_ms`` the backward wrapper (its fill included) on the
+(R, C, P, P) gradient fc6's flatten hands back, ``fill_ms`` the fill
+alone.
 
 It prints the card's name and power limit, one JSON line per process, and
 last one JSON object with each checkout's mean of its two turns.
@@ -191,16 +201,68 @@ def _crop_times(rc, f, rois, kw, grad, rcpp):
                 f.shape, dtype=torch.float32, device=f.device))}
 
 
+def _chip_smoke():
+    """This script's own copy of ``chip_smoke.py``, whichever checkout is
+    measured."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def align_worker(checkout, seed):
+    """``--op align``: RoIAlignAvg at the eval path's batch-1 shape, float32
+    and bfloat16, checked and timed."""
+    import numpy as np
+    import torch
+
+    cs = _chip_smoke()
+    sys.path.insert(0, os.path.abspath(checkout))
+    import tllod_torch.ops.roi_align as ra
+    _own(ra, checkout)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rois = eval_rois(rng, dev)
+    feat = torch.relu(torch.randn((1, 37, 75, 512), generator=gen,
+                                  device=dev))
+    grad = torch.randn((N_EVAL, P, P, 512), generator=gen, device=dev)
+    kw = {"out_size": P, "spatial_scale": 1.0 / 16}
+    recs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        f = feat.to(dtype)
+        rcpp = grad.to(dtype).permute(0, 3, 1, 2).contiguous().permute(
+            0, 2, 3, 1)
+        leaf = f.clone().requires_grad_(True)
+        want = ra.roi_align_avg_plain(leaf, rois, **kw)
+        if not torch.equal(ra.roi_align_avg(f, rois, **kw), want):
+            raise RuntimeError(f"eval {dtype}: forward differs from the "
+                               f"plain version")
+        (want_g,) = torch.autograd.grad(want, leaf, rcpp)
+        ok, err, scale = cs._grad_close(
+            ra.roi_align_avg_backward(rcpp, rois, tuple(f.shape), **kw).to(
+                dtype), want_g, dtype)
+        if not ok:
+            raise RuntimeError(f"eval {dtype}: backward off by {err} (max "
+                               f"|want| {scale})")
+        recs.append({
+            "site": f"eval 1x37x75x512, {N_EVAL} rois {str(dtype)[6:]}",
+            "fwd_ms": device_ms(lambda: ra.roi_align_avg(f, rois, **kw)),
+            "bwd_ms": device_ms(lambda: ra.roi_align_avg_backward(
+                rcpp, rois, tuple(f.shape), **kw)),
+            "fill_ms": device_ms(lambda: torch.zeros(
+                f.shape, dtype=torch.float32, device=dev))})
+    return recs
+
+
 def crop_worker(checkout, seed, checked=True, sites=None):
     """``--op crop``: the crop sets of ``chip_smoke.py`` (this script's own
     copy, whichever checkout is measured), then the saved train sites in
     ``sites``, checked and timed."""
     import torch
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = _chip_smoke()
     sys.path.insert(0, os.path.abspath(checkout))
     import tllod_torch.ops.roi_crop as rc
     _own(rc, checkout)
@@ -247,7 +309,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("old")
     ap.add_argument("new", nargs="?", default=HERE)
-    ap.add_argument("--op", choices=("pool", "crop"), default="pool")
+    ap.add_argument("--op", choices=("pool", "crop", "align"),
+                    default="pool")
     ap.add_argument("--unchecked", action="store_true",
                     help="--op crop: time without checking")
     ap.add_argument("--sites", help="--op crop: also the train sites that "
@@ -258,8 +321,9 @@ def main() -> int:
 
     if args.worker:
         sites = (crop_worker(args.worker, args.seed, not args.unchecked,
-                             args.sites)
-                 if args.op == "crop" else worker(args.worker, args.seed))
+                             args.sites) if args.op == "crop"
+                 else align_worker(args.worker, args.seed)
+                 if args.op == "align" else worker(args.worker, args.seed))
         print(json.dumps({"checkout": args.worker, "sites": sites}))
         return 0
 

@@ -28,7 +28,8 @@ print(sorted(roots & set({FORBIDDEN!r} + {LAZY!r})))
 """
 # the modules of the MAF, ATF and PT-MAF slice, of the PA-ATF slice, of
 # the US-DAF and supervised-train slice, of the MAD slice, of the IDF
-# slice and of the data-parallel slice, which the walk must reach
+# slice, of the data-parallel slice and of the datasets slice, which the
+# walk must reach
 SLICE = ("tllod_torch.methods.maf", "tllod_torch.methods.atf",
          "tllod_torch.methods.pt_maf", "tllod_torch.cli.da_runner",
          "tllod_torch.cli.maf_train", "tllod_torch.cli.atf_train",
@@ -44,7 +45,10 @@ SLICE = ("tllod_torch.methods.maf", "tllod_torch.methods.atf",
          "tllod_torch.cli.idf_train", "tllod_torch.cli.idf_test",
          "tllod_torch.cli.generate_pseudo_labels",
          "tllod_torch.parallel", "tllod_torch.parallel.dist",
-         "tllod_torch.parallel.multihost")
+         "tllod_torch.parallel.multihost", "tllod_torch.data.mask_rle",
+         "tllod_torch.data.coco_eval", "tllod_torch.data.coco",
+         "tllod_torch.data.imagenet", "tllod_torch.data.vg",
+         "tllod_torch.data.evaluate", "tllod_torch.utils.vis")
 
 
 def test_port_and_chip_smoke_import_no_jax_nor_heavy_io():
@@ -66,3 +70,29 @@ def test_port_sources_have_no_jax_import():
     assert len(files) > 20
     offenders = [f for f in files if pat.search(open(f).read())]
     assert offenders == []
+
+
+def test_image_and_config_libraries_load_inside_functions_only():
+    """``cv2``, ``PIL`` and ``yaml`` are imported in the port only inside
+    function bodies (the card's machine has none of them); ``vis.py``
+    imports ``cv2`` in each of its two functions."""
+    lazy = {}
+    for f in glob.glob(os.path.join(REPO, "tllod_torch", "**", "*.py"),
+                       recursive=True):
+        tree = ast.parse(open(f).read())
+        inside = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                inside.update(id(n) for n in ast.walk(node))
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            for name in names:
+                if name.split(".")[0] in LAZY:
+                    assert id(node) in inside, (f, node.lineno, name)
+                    lazy.setdefault(os.path.relpath(f, REPO), []).append(
+                        name)
+    assert lazy[os.path.join("tllod_torch", "utils", "vis.py")] == [
+        "cv2", "cv2"]

@@ -203,11 +203,111 @@ def test_roi_align_avg_bf16_stores_bf16_of_f32_math(rng):
 
 
 def test_roi_align_avg_no_such_image_gives_zeros(rng):
-    feat, rois = _roi_case(rng, b=2, r=3)
+    """A RoI that names no image (index 2 of 2) gives zeros where its
+    samples lie outside the map and JAX's NaN where they lie inside; index
+    -1 reads image 1 (JAX's ``jnp.take`` wraps it)."""
+    feat, rois = _roi_case(rng, b=2, r=4)
     rois[0, 0], rois[1, 0] = 2, -1
+    rois[3] = [2, -400, -300, -100, -50]            # outside the map
     got = roi_align_avg(torch.from_numpy(feat), torch.from_numpy(rois),
                         out_size=7, spatial_scale=1 / 16)
-    assert (got[:2] == 0).all() and (got[2] != 0).any()
+    assert torch.isnan(got[0]).all() and (got[3] == 0).all()
+    one = rois[1:2].copy()
+    one[0, 0] = 1
+    assert torch.equal(got[1:2], roi_align_avg(
+        torch.from_numpy(feat), torch.from_numpy(one), out_size=7,
+        spatial_scale=1 / 16))
+    want = np.asarray(j_roi_align_avg(jnp.asarray(feat), jnp.asarray(rois),
+                                      out_size=7, spatial_scale=1 / 16))
+    np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want))
+
+
+# batch indices on a B = 2 map: in range, past the end, wrapped from below
+# (-1, -2 read images 1, 0), below -B; the last RoIs straddle the map's
+# top-left corner, so their bins mix samples inside and outside it
+BATCH_INDICES = (0, 1, 2, 5, -1, -2, -3, -7)
+
+
+def _index_rois(rng, feat, straddle):
+    _, h, w, _ = feat.shape
+    rois = []
+    for k in BATCH_INDICES:
+        x1, y1 = rng.rand() * (w - 6) * 16, rng.rand() * (h - 6) * 16
+        if straddle:
+            x1, y1 = -40 - rng.rand() * 30, -30 - rng.rand() * 30
+        rois.append([k, x1, y1, x1 + 30 + rng.rand() * 80,
+                     y1 + 30 + rng.rand() * 80])
+    return np.asarray(rois, np.float32)
+
+
+def _wrapped_valid(rois, b):
+    """The RoIs whose index names an image, with the index wrapped to it."""
+    keep = (rois[:, 0] >= -b) & (rois[:, 0] < b)
+    out = rois[keep].copy()
+    out[:, 0] = np.where(out[:, 0] < 0, out[:, 0] + b, out[:, 0])
+    return keep, out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_roi_align_avg_batch_index_rule_matches_jax(rng, dtype):
+    """JAX's model path (``jnp.take`` on the flattened map) for every batch
+    index: an index in [-B, 0) reads image ``index + B``, forward and map
+    gradient; one outside [-B, B) gives NaN at every in-map sample and adds
+    nothing to the map gradient. Forward: NaN positions equal JAX's, the
+    rest within this file's 1e-5 (bfloat16: JAX's float32 result on the
+    same bfloat16 values, one bfloat16 spacing). Map gradient: float32
+    against ``jax.vjp`` within 1e-5; bfloat16 within one bfloat16 spacing
+    at the largest entry of that exact gradient (``tests/test_torch_bf16.
+    py``'s convention where the sums cancel: the port rounds its float32
+    sum once); the forward bit-equal, and the map gradient within the same
+    tolerances, to those of the RoIs that name an image, their indices
+    wrapped by hand."""
+    from test_torch_bf16 import _assert_spacings
+
+    feat = rng.randn(2, 16, 24, 16).astype(np.float32)
+    rois = np.concatenate([_index_rois(rng, feat, False),
+                           _index_rois(rng, feat, True)])
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(feat).to(tdt)
+    feat = x.float().numpy()                      # the values both read
+    kw = dict(out_size=7, spatial_scale=1 / 16)
+    xg = x.clone().requires_grad_(True)
+    got = roi_align_avg(xg, torch.from_numpy(rois), **kw)
+    assert got.dtype == tdt
+    fn = lambda f: j_roi_align_avg(f, jnp.asarray(rois), **kw)  # noqa: E731
+    want, pull = jax.vjp(fn, jnp.asarray(feat))
+    want, g_np = np.asarray(want), got.detach().float().numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(g_np), nan)
+    bad = (rois[:, 0] >= 2) | (rois[:, 0] < -2)
+    assert nan[bad].any() and not nan[~bad].any()
+    assert (want[bad][~nan[bad]] == 0).any()      # straddling bins mix
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=2.0 ** -8, atol=1e-5))
+    np.testing.assert_allclose(g_np[~nan], want[~nan], **tol)
+
+    cot = rng.randn(*want.shape).astype(np.float32)
+    (want_g,) = pull(jnp.asarray(cot))
+    want_g = np.asarray(want_g)
+    got.backward(torch.from_numpy(cot).to(tdt))
+    grad = xg.grad.float().numpy()
+    assert not np.isnan(grad).any() and np.abs(want_g).max() > 0
+    if dtype == "float32":
+        np.testing.assert_allclose(grad, want_g, rtol=1e-5, atol=1e-5)
+    else:
+        _assert_spacings(grad, want_g, n=1, what="exact map gradient",
+                         at_max=True)
+    keep, valid = _wrapped_valid(rois, 2)
+    xv = x.clone().requires_grad_(True)
+    out = roi_align_avg(xv, torch.from_numpy(valid), **kw)
+    assert torch.equal(out, got[torch.from_numpy(keep)].detach())
+    out.backward(torch.from_numpy(cot[keep]).to(tdt))
+    # the plain version's scatter may sum in another order without the rows
+    if dtype == "float32":
+        np.testing.assert_allclose(xv.grad.numpy(), grad, rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        _assert_spacings(xv.grad.float().numpy(), grad, n=1, at_max=True)
 
 
 # ---- NMS ----

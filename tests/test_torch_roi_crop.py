@@ -288,6 +288,71 @@ def test_bf16_map_forward_and_backward(jit_grid):
             + _spacing(exact)).all()
 
 
+# batch indices on a B = 2 map: in range, past the end, wrapped from below
+# (-1, -2 read images 1, 0), below -B
+BATCH_INDICES = (0, 1, 2, 5, -1, -2, -3, -7)
+
+
+@pytest.mark.parametrize("g,max_pool,dtype", [(14, True, "float32"),
+                                              (7, False, "float32"),
+                                              (14, True, "bfloat16")])
+def test_batch_index_rule_matches_jax(g, max_pool, dtype, jit_grid):
+    """JAX's ``roi_crop`` for every batch index (its ``jnp.take`` on the
+    flattened map): an index in [-B, 0) reads image ``index + B``, forward
+    and map gradient; one outside [-B, B) gives NaN in every output (every
+    point is clipped into the map) and adds nothing to the map gradient,
+    though the max's gradient of an all-NaN window is NaN. Forward
+    bit-equal with NaN where JAX's is; map gradient against ``jax.vjp`` as
+    ``_assert_grad`` (bfloat16: within one bfloat16 spacing of the exact
+    gradient, as ``test_bf16_map_forward_and_backward``); the forward
+    bit-equal, and the map gradient within the same tolerances, to those of
+    the RoIs that name an image, indices wrapped by hand."""
+    from test_torch_bf16 import _assert_spacings
+
+    rs = np.random.RandomState(31 + g)
+    h, w, c = 9, 13, 16
+    x = torch.from_numpy(_maps(rs, 2, h, w, c)).to(getattr(torch, dtype))
+    feat = x.float().numpy()
+    base = _rois(rs, 2, h, w, n=len(BATCH_INDICES))[:len(BATCH_INDICES)]
+    rois = np.concatenate([base, base]).astype(np.float32)
+    rois[:, 0] = BATCH_INDICES * 2
+    rois[len(BATCH_INDICES):, 1:] = _rois(rs, 2, h, w, n=0)[
+        :len(BATCH_INDICES), 1:]                  # the edge RoIs too
+    kw = dict(grid_size=g, max_pool=max_pool)
+    xg = x.clone().requires_grad_(True)
+    got = T.roi_crop(xg, torch.from_numpy(rois), **kw)
+    fn = lambda f: J.roi_crop(f, jnp.asarray(rois), **kw)  # noqa: E731
+    want, pull = jax.vjp(fn, jnp.asarray(feat))
+    want = np.asarray(want)
+    bad = (rois[:, 0] >= 2) | (rois[:, 0] < -2)
+    assert np.isnan(want[bad]).all() and not np.isnan(want[~bad]).any()
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+
+    p = g // 2 if max_pool else g
+    cot = rs.randn(len(rois), p, p, c).astype(np.float32)
+    (want_g,) = pull(jnp.asarray(cot))
+    want_g = np.asarray(want_g)
+    got.backward(torch.from_numpy(cot))
+    grad = xg.grad.float().numpy()
+    assert not np.isnan(grad).any() and np.abs(want_g).max() > 0
+    if dtype == "float32":
+        _assert_grad(grad, want_g)
+    else:
+        _assert_spacings(grad, want_g, n=1, what="exact map gradient")
+    keep = ~bad
+    valid = rois[keep].copy()
+    valid[:, 0] = np.where(valid[:, 0] < 0, valid[:, 0] + 2, valid[:, 0])
+    xv = x.clone().requires_grad_(True)
+    out = T.roi_crop(xv, torch.from_numpy(valid), **kw)
+    assert torch.equal(out, got[torch.from_numpy(keep)].detach())
+    out.backward(torch.from_numpy(cot[keep]))
+    # the plain version's scatter sums in another order without the rows
+    if dtype == "float32":
+        _assert_grad(xv.grad.numpy(), grad)
+    else:
+        _assert_spacings(xv.grad.float().numpy(), grad, n=1, at_max=True)
+
+
 def test_dense_grid_sample_matches_jax():
     """The identity grid and a constant +2 px x-offset
     (``tests/test_roi_ops.py``'s cases) and random offsets, against eager

@@ -111,4 +111,4 @@ def test_union_roidb_matches_jax(tmp_path, monkeypatch):
     # dog and bus are outside cityscape ∩ kitti ∩ foggy
     assert 0 < n_kept < 15
     with pytest.raises(KeyError, match="DG-union pattern"):
-        factory.get_dataset("coco_2014_train")
+        factory.get_dataset("nosuch_2007_train")

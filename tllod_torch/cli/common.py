@@ -308,8 +308,8 @@ def build_test_parser(description: str) -> argparse.ArgumentParser:
                         "are gathered and every rank scores them all "
                         "(also under TLLOD_DIST_*)")
     p.add_argument("--vis", action="store_true",
-                   help="annotated detection images: not ported yet "
-                        "(raises)")
+                   help="write each image with its detections to "
+                        "<output_dir>/<net>/<dataset>/vis (needs cv2)")
     p.add_argument("--set", dest="set_cfgs", nargs="*", default=None)
     return p
 

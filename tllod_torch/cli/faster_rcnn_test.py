@@ -50,8 +50,6 @@ def evaluate_split(args, split: str) -> dict:
     ``TLLOD_DIST_*`` launch each rank detects its roidb shard and every
     rank scores the gathered detections (:func:`tllod_torch.eval_engine.
     run_detection`)."""
-    if args.vis:
-        raise NotImplementedError("--vis is not ported yet")
     setup_parallel(args, args.shard_eval)
     cfg = resolve_config(args)
     np.random.seed(cfg.RNG_SEED)
@@ -71,7 +69,7 @@ def evaluate_split(args, split: str) -> dict:
                                        args.dataset),
                           max_per_image=args.max_per_image,
                           class_agnostic=args.class_agnostic,
-                          eval_batch=args.eval_bs)
+                          vis=args.vis, eval_batch=args.eval_bs)
 
 
 def main(argv=None):

@@ -46,8 +46,6 @@ def main(argv=None) -> dict:
     parser.add_argument("--gamma", default=5.0, type=float)
     parser.add_argument("--eta", default=1.0, type=float)
     args = parser.parse_args(argv)
-    if args.vis:
-        raise NotImplementedError("--vis is not ported yet")
     setup_parallel(args, args.shard_eval)
     cfg = resolve_config(args)
     np.random.seed(cfg.RNG_SEED)
@@ -67,7 +65,7 @@ def main(argv=None) -> dict:
                                        args.dataset),
                           max_per_image=args.max_per_image,
                           class_agnostic=args.class_agnostic,
-                          eval_batch=args.eval_bs)
+                          vis=args.vis, eval_batch=args.eval_bs)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,12 @@
 // sample points (S = P + 1) at start + k * bin with bin = max(extent + 1, 0)
 // / (S - 1); one bilinear sample per point from the 2x2 neighbourhood
 // anchored at min(floor(y), H - 2) / min(floor(x), W - 2), so the last row or
-// column extrapolates; a point outside [0, H) x [0, W), or a RoI that names
-// no image, gives exactly 0. RoIAlignAvg then takes the 2x2 stride-1 mean of
-// the S x S samples down to P x P.
+// column extrapolates; a point outside [0, H) x [0, W) gives exactly 0.
+// RoIAlignAvg then takes the 2x2 stride-1 mean of the S x S samples down to
+// P x P. The batch index b follows JAX's model path (jnp.take on the
+// flattened map): b in [-B, 0) reads image b + B, forward and backward; b
+// outside [-B, B) gives NaN at every in-map sample, so an output bin is NaN
+// where any of its four samples lies in the map, and no map gradient.
 //
 // What both kernels share. A block takes one RoI and one slice of channels.
 // Warp 0 first lays out the RoI's two axes in shared memory (build_axes):
@@ -213,7 +216,7 @@ roi_align_avg_forward_kernel(const T* __restrict__ feat,
     if (threadIdx.x == 0) s_b = (int)roi[0];
   }
   __syncthreads();
-  const int b = s_b;
+  const int b = s_b < 0 ? s_b + B : s_b;
   const bool has_image = b >= 0 && b < B;
   if (has_image) {
     // a slot computes sample column l of every rstep-th row from row r0
@@ -296,8 +299,12 @@ roi_align_avg_forward_kernel(const T* __restrict__ feat,
     for (int i = threadIdx.x / kTile; c < nlanes * kVec && i < Pn;
          i += kThreads / kTile) {
       T* o = tile + (size_t)c * PP + i * Pn;
-      if (!has_image) {
-        for (int j = 0; j < Pn; ++j) store_f(o + j, 0.0f);
+      if (!has_image) {  // NaN where a sample of the bin is in the map
+        const bool row_in = ay.pos[i] >= 0 || ay.pos[i + 1] >= 0;
+        for (int j = 0; j < Pn; ++j) {
+          const bool in = row_in && (ax.pos[j] >= 0 || ax.pos[j + 1] >= 0);
+          store_f(o + j, in ? __int_as_float(0x7fc00000) : 0.0f);
+        }
         continue;
       }
       const float* top = samp + (size_t)i * S * kTile + c;
@@ -381,7 +388,7 @@ roi_align_avg_backward_kernel(const T* __restrict__ grad_out,
     if (threadIdx.x == 0) s_b = (int)roi[0];
   }
   __syncthreads();
-  const int b = s_b;
+  const int b = s_b < 0 ? s_b + B : s_b;
   if (b < 0 || b >= B || ax.n == 0 || ay.n == 0) return;  // no gradient
 
   // g's tile to shared memory as float32, in the layout it arrives in:

@@ -25,10 +25,12 @@
 // each 2 x 2 window of samples (an odd G drops its last sample row and
 // column); without it P = G and the samples are the output. Samples are
 // float32 whatever the map's type (a bfloat16 map is promoted by the
-// float32 weights, as in JAX), so the output is float32. A RoI whose batch
-// index names no image gives zeros and no gradient. Built with
-// -fmad=false, so every product and sum rounds where the plain version's
-// does and the forward is bit-equal to it.
+// float32 weights, as in JAX), so the output is float32. The batch index b
+// follows JAX's roi_crop (jnp.take on the flattened map): b in [-B, 0)
+// reads image b + B, forward and backward; b outside [-B, B) gives NaN in
+// every output (every point is clipped into the map) and no gradient.
+// Built with -fmad=false, so every product and sum rounds where the plain
+// version's does and the forward is bit-equal to it.
 //
 // Bound. At eval batch 1 (1 x 37 x 75 x 512 float32 map, 300 RoIs, G = 14
 // with the max) the map is 5.7 MB, read from L2 after its first touch, and
@@ -289,10 +291,10 @@ roi_crop_forward_kernel(const T* __restrict__ feat,
   const int cb = lane * kVec;
   build_axes(rois + (size_t)r * 5, H, W, G, n_used, false, ay, ax, s_b);
   __syncthreads();
-  const int b = s_b;
+  const int b = s_b < 0 ? s_b + B : s_b;
   if (b < 0 || b >= B) {
     for (int it = threadIdx.x; it < nch * PP; it += kThreads) {
-      otile[it] = 0.0f;
+      otile[it] = __int_as_float(0x7fc00000);
     }
   } else {
     // a slot takes one output at a time: its window's four samples (or its
@@ -413,7 +415,7 @@ roi_crop_backward_kernel(const float* __restrict__ grad_out,
   float* gs = gt + (size_t)PP * kRowB;          // max: [k][l][c] shares
   build_axes(rois + (size_t)r * 5, H, W, G, n_used, true, ay, ax, s_b);
   __syncthreads();
-  const int b = s_b;
+  const int b = s_b < 0 ? s_b + B : s_b;
   if (b < 0 || b >= B) return;      // no such image: no gradient
 
   // g's tile as [position][channel], rows padded to kRowB floats: a

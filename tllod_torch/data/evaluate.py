@@ -1,7 +1,8 @@
 """Detection evaluation driver (copy of ``tllod_tpu/data/evaluate.py``):
 all_boxes → VOC results files → per-class AP/mAP (reference ``imdb.evaluate_detections`` →
 ``_write_voc_results_file`` → ``_do_python_eval``,
-``lib/datasets/cityscape.py:290-377``)."""
+``lib/datasets/cityscape.py:290-377``), and the proposal recall of
+:func:`evaluate_recall`."""
 
 from __future__ import annotations
 
@@ -111,3 +112,55 @@ def print_eval(aps: Dict[str, float]) -> None:
         if k != "mAP":
             print(f"AP for {k} = {v:.4f}")
     print(f"Mean AP = {aps['mAP']:.4f}")
+
+
+def _bbox_overlaps(boxes: np.ndarray, query: np.ndarray) -> np.ndarray:
+    """(N, 4) × (K, 4) → (N, K) float32 IoU with the "+1" convention: the
+    numpy fallback of ``tllod_tpu/native/__init__.py::bbox_overlaps`` (the
+    cython_bbox counterpart, reference ``lib/model/utils/bbox.pyx:15-55``).
+    """
+    boxes = np.ascontiguousarray(boxes, np.float32)
+    query = np.ascontiguousarray(query, np.float32)
+    barea = ((boxes[:, 2] - boxes[:, 0] + 1)
+             * (boxes[:, 3] - boxes[:, 1] + 1))[:, None]
+    qarea = ((query[:, 2] - query[:, 0] + 1)
+             * (query[:, 3] - query[:, 1] + 1))[None, :]
+    iw = np.clip(np.minimum(boxes[:, 2:3], query[None, :, 2])
+                 - np.maximum(boxes[:, 0:1], query[None, :, 0]) + 1, 0, None)
+    ih = np.clip(np.minimum(boxes[:, 3:4], query[None, :, 3])
+                 - np.maximum(boxes[:, 1:2], query[None, :, 1]) + 1, 0, None)
+    inter = iw * ih
+    return (inter / (barea + qarea - inter)).astype(np.float32)
+
+
+def evaluate_recall(roidb: Sequence[dict], candidate_boxes: Sequence,
+                    thresholds: Sequence[float] = None,
+                    limit: int = None) -> Dict[str, object]:
+    """Proposal recall metrics (reference ``imdb.evaluate_recall``,
+    ``lib/datasets/imdb.py:143-194``): for each image, the best-candidate
+    IoU per gt box, reduced to recall at a threshold sweep.
+
+    candidate_boxes[i]: (N_i, 4) proposals for image i (0-based xyxy).
+    """
+    gt_overlaps = []
+    for entry, boxes in zip(roidb, candidate_boxes):
+        gt = entry["boxes"]
+        if len(gt) == 0:
+            continue
+        boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+        if limit is not None:
+            boxes = boxes[:limit]
+        if len(boxes) == 0:
+            gt_overlaps.append(np.zeros(len(gt), np.float32))
+            continue
+        ov = _bbox_overlaps(np.asarray(gt, np.float32), boxes)
+        gt_overlaps.append(ov.max(axis=1))
+    gt_overlaps = (np.concatenate(gt_overlaps)
+                   if gt_overlaps else np.zeros(0, np.float32))
+    if thresholds is None:
+        thresholds = np.arange(0.5, 0.95 + 1e-5, 0.05)
+    recalls = np.array([(gt_overlaps >= t).mean() if len(gt_overlaps) else 0.0
+                        for t in thresholds])
+    return {"ar": float(recalls.mean()), "recalls": recalls,
+            "thresholds": np.asarray(thresholds),
+            "gt_overlaps": gt_overlaps}

@@ -1,11 +1,13 @@
-"""Dataset factory: name → VOCDetection (the VOC-format part of
+"""Dataset factory: name → dataset (a copy of
 ``tllod_tpu/data/factory.py``).
 
 Replaces the reference's lambda registry (``lib/datasets/factory.py:22-67``),
 keeping the same public names (``cityscape_2007_train_s``, ``voc_2007_trainval``
 ...) so entry-point ``--dataset`` flags resolve identically. Roots default to
 ``$TLLOD_DATA_DIR`` (reference: ``cfg.DATA_DIR``, ``lib/model/utils/
-config.py:272``) and every split maps onto the generic VOC-format reader.
+config.py:272``). The VOC-format splits map onto the generic VOC reader;
+COCO, ImageNet DET and Visual Genome names onto their own readers, with the
+JAX package's on-disk layout.
 """
 
 from __future__ import annotations
@@ -115,6 +117,60 @@ def _register_defaults() -> None:
     register_dataset("cs_2007_train_fg",
                      _voc_ctor("cs_2007_train_fg", "cs_cyclegan", "2007",
                                "train_fg", "cityscape"))
+    # COCO (reference lib/datasets/factory.py:34-50; json layout
+    # data/coco/annotations + data/coco/images/<split><year>)
+    for year, splits in (("2014", ("train", "val", "minival",
+                                   "valminusminival", "trainval")),
+                         ("2015", ("test", "test-dev"))):
+        for split in splits:
+            name = f"coco_{year}_{split}"
+            register_dataset(name, _coco_ctor(name, year, split))
+    # ImageNet DET (reference lib/datasets/factory.py:63-68)
+    for split in ("train", "val", "val1", "val2", "test"):
+        name = f"imagenet_{split}"
+        register_dataset(name, _imagenet_ctor(name, split))
+    # Visual Genome (reference lib/datasets/factory.py:57-61)
+    for version in ("150-50-20", "150-50-50", "500-150-80", "750-250-150",
+                    "1750-700-450", "1600-400-20"):
+        for split in ("minitrain", "smalltrain", "train", "minival",
+                      "smallval", "val", "test"):
+            name = f"vg_{version}_{split}"
+            register_dataset(name, _vg_ctor(name, version, split))
+
+
+def _coco_ctor(name, year, split):
+    def ctor():
+        from tllod_torch.data.coco import COCODetection
+        root = os.path.join(data_dir(), "coco")
+        prefix = {"minival": "instances_minival",
+                  "valminusminival": "instances_valminusminival",
+                  "test": "image_info_test", "test-dev": "image_info_test-dev"
+                  }.get(split, "instances_" + split)
+        ann = os.path.join(root, "annotations", f"{prefix}{year}.json")
+        img_split = {"minival": "val", "valminusminival": "val",
+                     "test-dev": "test"}.get(split, split)
+        return COCODetection(name, os.path.join(root, "images",
+                                                f"{img_split}{year}"), ann)
+    return ctor
+
+
+def _imagenet_ctor(name, split):
+    def ctor():
+        from tllod_torch.data.imagenet import ImageNetDetection
+        root = os.path.join(data_dir(), "imagenet", "ILSVRC")
+        return ImageNetDetection(name, root, split,
+                                 cache_dir=os.path.join(data_dir(), "cache"))
+    return ctor
+
+
+def _vg_ctor(name, version, split):
+    def ctor():
+        from tllod_torch.data.vg import VGDetection
+        # VGDetection uses <root>/genome (metadata) + <root>/vg (images),
+        # matching the reference's DATA_DIR layout (lib/datasets/vg.py:34-35)
+        return VGDetection(name, data_dir(), version, split,
+                           cache_dir=os.path.join(data_dir(), "cache"))
+    return ctor
 
 
 _register_defaults()
@@ -133,8 +189,7 @@ def get_dataset(name: str) -> VOCDetection:
     if ds is not None:
         return ds
     raise KeyError(f"Unknown dataset: {name!r}. Known: {sorted(_REGISTRY)} "
-                   f"or a DG-union pattern (COCO, ImageNet and VG sets are "
-                   f"not ported yet)")
+                   f"or a DG-union pattern")
 
 
 def list_datasets():

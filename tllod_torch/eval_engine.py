@@ -1,4 +1,5 @@
-"""Evaluation engine: run the detector over a dataset → all_boxes → VOC mAP
+"""Evaluation engine: run the detector over a dataset → all_boxes → VOC mAP,
+or the dataset's own protocol where it has one (COCO's AP@[.5:.95])
 (``tllod_tpu/eval_engine.py:41-213``; reference
 ``methods/DAF/DAF_test.py:255-351``).
 
@@ -107,13 +108,16 @@ def detect_chunks(model: FasterRCNN, chunks: Iterable[Tuple[List[int], dict]],
 def run_detection(model: FasterRCNN, dataset, roidb, cfg: Config, *,
                   max_per_image: int = 100, score_thresh: float = 0.0,
                   class_agnostic: bool = False, verbose_every: int = 200,
-                  eval_batch: int = 1) -> List[List]:
+                  vis_dir: str = "", eval_batch: int = 1) -> List[List]:
     """Run inference over ``roidb`` → all_boxes[class][image] arrays,
     ``eval_batch`` images per forward; under a process group, over this
-    rank's shard, then gathered from every rank."""
+    rank's shard, then gathered from every rank. With ``vis_dir`` each
+    image this rank detects is written with its detections above 0.3 to
+    ``<vis_dir>/vis/<img_id>_det.png`` (the reference's ``--vis``,
+    ``DAF_test.py:299-345``)."""
     kw = dict(max_per_image=max_per_image, score_thresh=score_thresh,
               class_agnostic=class_agnostic, verbose_every=verbose_every,
-              eval_batch=eval_batch)
+              vis_dir=vis_dir, eval_batch=eval_batch)
     if not dist.active():
         return _detect_roidb(model, dataset, roidb, cfg, **kw)
     local_roidb, local_idx = shard_roidb(roidb, dist.rank(), dist.world())
@@ -126,7 +130,8 @@ def run_detection(model: FasterRCNN, dataset, roidb, cfg: Config, *,
 
 
 def _detect_roidb(model, dataset, roidb, cfg, *, max_per_image,
-                  score_thresh, class_agnostic, verbose_every, eval_batch):
+                  score_thresh, class_agnostic, verbose_every, vis_dir,
+                  eval_batch):
     num_classes = dataset.num_classes
     loader = EvalLoader(roidb, cfg)
     n = len(loader)
@@ -152,19 +157,30 @@ def _detect_roidb(model, dataset, roidb, cfg, *, max_per_image,
     for i, per_class in results.items():
         for c in range(1, num_classes):
             all_boxes[c][i] = per_class[c]
+        if vis_dir:
+            from tllod_torch.utils.vis import save_detection_image
+            save_detection_image(roidb[i]["image"], per_class,
+                                 dataset.classes, vis_dir,
+                                 img_id=roidb[i].get("img_id"))
     return all_boxes
 
 
 def evaluate_model(model: FasterRCNN, dataset, roidb, cfg: Config,
                    output_dir: str, *, max_per_image: int = 100,
-                   class_agnostic: bool = False,
+                   class_agnostic: bool = False, vis: bool = False,
                    eval_batch: int = 1) -> Dict[str, float]:
+    """Detect ``roidb`` and score it: by the dataset's own protocol where it
+    has one (``evaluate_detections``: COCO's 12 stats), else VOC AP from
+    the devkit files, else VOC AP on the in-memory ground truth."""
     all_boxes = run_detection(model, dataset, roidb, cfg,
                               max_per_image=max_per_image,
                               class_agnostic=class_agnostic,
+                              vis_dir=output_dir if vis else "",
                               eval_batch=eval_batch)
     if dist.rank() > 0:
         output_dir = os.path.join(output_dir, f"rank{dist.rank()}")
+    if hasattr(dataset, "evaluate_detections"):
+        return dataset.evaluate_detections(all_boxes, output_dir)
     if not hasattr(dataset, "annopath_template"):
         aps = evaluate_detections_roidb(dataset, roidb, all_boxes,
                                         use_07_metric=True)

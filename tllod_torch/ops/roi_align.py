@@ -22,11 +22,21 @@ which autograd differentiates: that is the plain version of the backward.
 Layouts are the JAX package's: ``feats`` is (B, H, W, C) — for the model,
 the NHWC view of a ``channels_last`` NCHW map — and ``rois`` is (R, 5) rows
 ``(batch_idx, x1, y1, x2, y2)`` in input-image coordinates; the output is
-(R, P, P, C). A RoI whose batch index names no image gives zeros. On the
-card the forward kernel writes (R, C, P, P), the order fc6 flattens in, and
-:func:`roi_align_avg` returns its (R, P, P, C) view, so the flatten is a
-view too; the backward kernel reads the output gradient as it arrives,
-(R, C, P, P)- or (R, P, P, C)-contiguous (:func:`grad_layout`).
+(R, P, P, C). On the card the forward kernel writes (R, C, P, P), the order
+fc6 flattens in, and :func:`roi_align_avg` returns its (R, P, P, C) view, so
+the flatten is a view too; the backward kernel reads the output gradient as
+it arrives, (R, C, P, P)- or (R, P, P, C)-contiguous (:func:`grad_layout`).
+
+A RoI's batch index is read as JAX's model path reads it
+(``tllod_tpu/ops/roi_align.py::_bilinear_gather``: ``jnp.take`` on the
+flattened map, whose indices wrap from below and fill with NaN past the
+end). An index in [-B, 0) reads image ``index + B``, in the forward and in
+the map gradient alike. An index of B or more, or below -B, gives NaN at
+every sample point inside the map (0 outside it, so an output bin is NaN
+where any of its samples is inside) and adds nothing to the map gradient.
+The plain versions and both kernels follow this rule in float32 and
+bfloat16. JAX's opt-in Pallas forward (``roi_align_pallas``, under
+``TLLOD_PALLAS=1``) reads image 0 for any index outside [0, B) instead.
 """
 
 from __future__ import annotations
@@ -67,11 +77,14 @@ def _grid_coords(rois: torch.Tensor, p: int, spatial_scale: float):
 def _bilinear_gather(feats: torch.Tensor, batch_idx: torch.Tensor,
                      ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     """Bilinear-sample (B, H, W, C) maps at per-RoI points → (R, G, C) in
-    float32 (a bfloat16 map is promoted by the float32 weights)."""
+    float32 (a bfloat16 map is promoted by the float32 weights). A batch
+    index in [-B, 0) reads image ``index + B``; one outside [-B, B) gives
+    NaN at every point inside the map and no map gradient (the rule of
+    the module docstring)."""
     b, h, w, c = feats.shape
-    has_image = (batch_idx >= 0) & (batch_idx < b)
-    inside = ((ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
-              & has_image[:, None])
+    inside = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+    bi = torch.where(batch_idx < 0, batch_idx + b, batch_idx).to(torch.int64)
+    has_image = (bi >= 0) & (bi < b)
 
     y0 = torch.clamp(torch.floor(ys), max=h - 2.0)
     x0 = torch.clamp(torch.floor(xs), max=w - 2.0)
@@ -81,8 +94,8 @@ def _bilinear_gather(feats: torch.Tensor, batch_idx: torch.Tensor,
     x0i = torch.clamp(x0.to(torch.int64), 0, w - 2)
 
     flat = feats.reshape(b * h * w, c)
-    bi = torch.clamp(batch_idx.to(torch.int64), 0, b - 1)
-    base = bi[:, None] * (h * w) + y0i * w + x0i                 # (R, G)
+    base = (bi.clamp(0, b - 1)[:, None] * (h * w) + y0i * w
+            + x0i)                                                # (R, G)
     ul = flat[base]
     ur = flat[base + 1]
     dl = flat[base + w]
@@ -90,6 +103,9 @@ def _bilinear_gather(feats: torch.Tensor, batch_idx: torch.Tensor,
 
     val = (ul * (1.0 - hr) * (1.0 - wr) + ur * (1.0 - hr) * wr
            + dl * hr * (1.0 - wr) + dr * hr * wr)
+    # JAX's ``jnp.take`` fills rows past the map with NaN and drops their
+    # gradient; the ``where`` passes no gradient to the value it replaces
+    val = torch.where(has_image[:, None, None], val, float("nan"))
     return torch.where(inside[..., None], val, 0.0)
 
 

@@ -34,8 +34,15 @@ caller of it outside its tests).
 
 Layouts are the JAX package's: ``feats`` (B, H, W, C), the NHWC view of a
 ``channels_last`` map; ``rois`` (R, 5) rows ``(batch_idx, x1, y1, x2, y2)``
-in input-image coordinates; the output (R, P, P, C). A RoI whose batch index
-names no image gives zeros.
+in input-image coordinates; the output (R, P, P, C).
+
+A RoI's batch index follows JAX's ``roi_crop`` (its ``jnp.take``, as
+:mod:`tllod_torch.ops.roi_align` sets out): an index in [-B, 0) reads image
+``index + B``, forward and gradient; an index of B or more, or below -B,
+gives NaN in every output (every point is clipped into the map) and no map
+gradient. The plain version and both kernels follow this rule in float32
+and bfloat16. JAX's opt-in Pallas RoIAlign reads image 0 for such an index
+instead.
 """
 
 from __future__ import annotations
