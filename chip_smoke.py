@@ -44,14 +44,14 @@ Phases, each ending the run nonzero on failure:
    the 64-box tiles the scan went through.
    The RoIPool forward (``POOLING_MODE='pool'``, off the eval path) is held
    to its plain version on the eval-batch-1 map and RoIs, float32
-   ``torch.equal``, at every channel-chunk width (``lanes``) that takes the
-   map; then, on that map and on its tie map, phase 4's edge RoIs and
+   ``torch.equal``, at every channel chunk (load width by ``lanes``) that
+   takes the map; then, on that map and on its tie map, phase 4's edge RoIs and
    regime sets, RoIPool's own edges (zero-padded gt rows, bins that clip
    empty), all of them with the eval RoIs at P = 3 and 15, and the eval
    RoIs on the map cut to C = 509, each through the forward (exact) and the
    backward (within 1e-5 of autograd through the plain version). RoIPool
    times are device times: ``graph_ms``, calls through the C interface
-   captured in a CUDA graph and replayed (the backward's zero fill
+   captured in a CUDA graph and replayed (every pass of the backward
    included).
    Then adversarial NMS problems (N = 1, 63, 64, 65, 12000, 196608;
    max_output in the middle of a tile and above N; identical boxes; no
@@ -187,8 +187,11 @@ Phases, each ending the run nonzero on failure:
    its own bfloat16 tensors (forward ``torch.equal``, backward within one
    bfloat16 spacing + 1e-5 x max|want|, RoIPool at every chunk width and on
    its tie map), PA-ATF's c3 map also on RoIs across columns 256-300 (the
-   bfloat16 coordinates of JAX's membership test) and its c5 map on phase
-   4's RoIPool sets. Then ``fused_phase`` for DAF at bfloat16.
+   bfloat16 coordinates of JAX's membership test), its c5 map on phase
+   4's RoIPool sets and its c3 and c4 maps on the bfloat16 kernels' own
+   edges (a RoI over the whole map, boxes wider than 28 and 56 columns,
+   bins across the backward's tiles, a batch-2 map with indices -1 and 2,
+   C = 509). Then ``fused_phase`` for DAF at bfloat16.
    5f. ``[optim]``: DAF's eager step under the reference SGD,
    ``--bf16_momentum`` and ``--o adam``: ms/step, peak memory, optimizer
    state bytes; then ``fused_phase`` under Adam.
@@ -1150,13 +1153,15 @@ def _roi_align_sets(feat, main_rois, kw, prefix=""):
     return records
 
 
-def roi_pool_launcher(feat, rois, kw, grad=None, lanes=None):
+def roi_pool_launcher(feat, rois, kw, grad=None, chunk=None):
     """A call that runs one RoIPool C call and nothing else (no checks, no
     allocation, no count); its result lands in ``call.out``. The forward on
-    the map ``feat``; or, with ``grad``, the backward: both of its device
-    passes, the map gradient's zero fill and the kernel adding into it, so
-    the time includes every write of the map gradient. ``lanes`` (8, 16 or
-    32) overrides the wrapper's ``lanes`` rule. ``graph_ms`` of it gives
+    the map ``feat``; or, with ``grad``, the backward: all of its device
+    passes (float32: the map gradient's zero fill and the kernel adding
+    into it; bfloat16: the touched tiles' float32 sums zeroed, the kernel,
+    the map gradient written from them), so the time includes every write
+    of the map gradient. ``chunk`` ((vec, lanes), one of ``_chunks``)
+    overrides the wrapper's ``chunk`` rule. ``graph_ms`` of it gives
     the device time; ``cuda_ms`` adds the host's gaps between calls."""
     import torch
     from tllod_torch.ops import _kernels
@@ -1173,8 +1178,7 @@ def roi_pool_launcher(feat, rois, kw, grad=None, lanes=None):
 
     if grad is None:
         out = torch.empty((r, p, p, c), device=feat.device, dtype=feat.dtype)
-        vec = rp.vector_width(c, feat)
-        n = lanes or rp.lanes(c, p, vec)
+        vec, n = chunk or rp.chunk(c, p, feat, out)
         keep = (feat, rois)
 
         def call():
@@ -1184,11 +1188,12 @@ def roi_pool_launcher(feat, rois, kw, grad=None, lanes=None):
     else:
         g = grad.to(feat.dtype).contiguous()
         out = torch.empty((b, h, w, c), device=feat.device, dtype=feat.dtype)
-        # the bfloat16 backward's float32 scratch map
-        scratch = (torch.empty((b, h, w, c), device=feat.device)
+        # the bfloat16 backward's float32 sums, NaN where the kernels do not
+        # zero them first: a tile they read without zeroing shows
+        scratch = (torch.full((b, h, w, c), float("nan"), device=feat.device)
                    if feat.dtype == torch.bfloat16 else None)
-        vec = rp.vector_width(c, feat, g)
-        n = lanes or rp.lanes(c, p, vec, backward=True)
+        vec, n = chunk or rp.chunk(c, p, feat, g, out, *(
+            [] if scratch is None else [scratch]), backward=True)
         keep = (g, feat, rois, scratch)
 
         def call():
@@ -1228,22 +1233,38 @@ def _tie_map(feat):
     return torch.round(feat / feat.std()).contiguous()
 
 
-def _lane_widths(feat, p, backward=False):
-    """The kernels' channel chunks (``lanes`` 8 and, with 16-byte loads,
-    16 for P <= 32 and 32 for P <= 16) that take this map, the wrapper's
+def _chunks(feat, p, backward=False):
+    """The kernels' channel chunks, (vec, lanes) pairs, that take this map:
+    lanes 8 and, with vector loads, 16 for P <= 32 and 32 for P <= 16, with
+    each load width the map's type and alignment allow (float32 16 bytes,
+    bfloat16 8 bytes and, forward, 16; else 1 channel); the wrapper's
     choice for the direction first."""
-    from tllod_torch.ops.roi_pool import lanes, vector_width
+    import torch
+    from tllod_torch.ops.roi_pool import chunk, vector_width
 
-    vec = vector_width(feat.shape[-1], feat)
-    picked = lanes(feat.shape[-1], p, vec, backward)
-    legal = [n for n, most in ((8, 64), (16, 32), (32, 16))
-             if p <= most and (n == 8 or vec > 1)]
-    return [picked] + [n for n in legal if n != picked]
+    c = feat.shape[-1]
+    picked = chunk(c, p, feat, backward=backward)
+    vecs = {vector_width(c, feat)}
+    if feat.dtype == torch.bfloat16:
+        # 16-byte loads only forward
+        vecs = {vector_width(c, feat, nbytes=8)} | (set() if backward
+                                                     else vecs)
+    if len(vecs) > 1:
+        vecs.discard(1)
+    legal = [(v, n) for v in sorted(vecs, reverse=True)
+             for n, most in ((8, 64), (16, 32), (32, 16))
+             if p <= most and (n == 8 or v > 1)]
+    return [picked] + [ch for ch in legal if ch != picked]
 
 
-def _roi_pool_forward_check(label, feat, rois, kw, widths):
+def _chunk_names(chunks):
+    """(4, 16) -> "4x16": load width by lanes."""
+    return [f"{v}x{n}" for v, n in chunks]
+
+
+def _roi_pool_forward_check(label, feat, rois, kw, chunks):
     """The forward through the wrapper and, through the C interface, at
-    each chunk width in ``widths``, each bit-equal to the plain version
+    each (vec, lanes) chunk in ``chunks``, each bit-equal to the plain version
     (computed once), float32 or bfloat16 (a max of bfloat16 values is one
     of them). Returns the wrapper's output."""
     import torch
@@ -1251,15 +1272,15 @@ def _roi_pool_forward_check(label, feat, rois, kw, widths):
 
     want = roi_pool_plain(feat, rois, **kw)
     outs = [("wrapper", roi_pool(feat, rois, **kw))]
-    for n in widths:
-        call = roi_pool_launcher(feat, rois, kw, lanes=n)
+    for ch in chunks:
+        call = roi_pool_launcher(feat, rois, kw, chunk=ch)
         call()
-        outs.append((n, call.out))
+        outs.append((ch, call.out))
     torch.cuda.synchronize()
-    for n, got in outs:
+    for ch, got in outs:
         if got.shape != want.shape or not torch.equal(got, want):
             err = (got - want).abs().max().item() if got.numel() else 0.0
-            raise RuntimeError(f"roi_pool {label} (lanes {n}): max err "
+            raise RuntimeError(f"roi_pool {label} (chunk {ch}): max err "
                                f"{err}")
     return outs[0][1]
 
@@ -1267,8 +1288,8 @@ def _roi_pool_forward_check(label, feat, rois, kw, widths):
 def _roi_pool_entry(label, feat, rois, kw, launches):
     """The RoIPool forward on ``feat`` and on its tie map, each
     ``torch.equal`` to the plain version through the wrapper and at each
-    channel-chunk width that takes the map; its device time (``graph_ms``
-    of calls through its C interface) at each width, CUDA events around 50
+    channel chunk that takes the map; its device time (``graph_ms``
+    of calls through its C interface) at each chunk, CUDA events around 50
     such calls back to back (``event_ms``, the host's gaps included), the
     wrapper and the plain version."""
     from tllod_torch.ops.roi_pool import roi_pool, roi_pool_plain
@@ -1276,15 +1297,16 @@ def _roi_pool_entry(label, feat, rois, kw, launches):
     b, h, w, c = feat.shape
     r, p = rois.shape[0], kw["out_size"]
     es = feat.element_size()
-    widths = _lane_widths(feat, p)
-    got = _roi_pool_forward_check(label, feat, rois, kw, widths)
+    chunks = _chunks(feat, p)
+    names = _chunk_names(chunks)
+    got = _roi_pool_forward_check(label, feat, rois, kw, chunks)
     _roi_pool_forward_check(f"{label} (tie map)", _tie_map(feat), rois, kw,
-                            widths)
+                            chunks)
     w_ms = cuda_ms(lambda: roi_pool(feat, rois, **kw), reps=50)
-    lanes_ms = {n: graph_ms(roi_pool_launcher(feat, rois, kw, lanes=n))
-                for n in widths}
+    lanes_ms = {n: graph_ms(roi_pool_launcher(feat, rois, kw, chunk=ch))
+                for n, ch in zip(names, chunks)}
     event_ms = cuda_ms(roi_pool_launcher(feat, rois, kw), reps=50)
-    k_ms = lanes_ms[widths[0]]
+    k_ms = lanes_ms[names[0]]
     p_ms = cuda_ms(lambda: roi_pool_plain(feat, rois, **kw), reps=3)
     covered, area = _roi_pool_work(feat.shape, rois, kw)
     # each distinct pixel read once, the output written once; one compare
@@ -1294,11 +1316,11 @@ def _roi_pool_entry(label, feat, rois, kw, launches):
                f"{b}x{h}x{w}x{c}, {r} rois, P={p}", launches, 0.0, k_ms,
                p_ms, nbytes, area * c,
                exact=True, tie_map_exact=True, wrapper_ms=w_ms,
-               event_ms=event_ms, lanes=widths[0], lanes_ms=lanes_ms,
+               event_ms=event_ms, lanes=names[0], lanes_ms=lanes_ms,
                distinct_map_pixels=covered, bin_pixels=area)
     e["share_of_bound"] = e["bound_ms"] / k_ms
-    log(f"[parity] roi_pool {e['shape']}: exact (and on its tie map, lanes "
-        + "/".join(map(str, widths)) + f"), kernel {k_ms:.4f} ms (lanes "
+    log(f"[parity] roi_pool {e['shape']}: exact (and on its tie map, chunks "
+        + "/".join(names) + f"), kernel {k_ms:.4f} ms (vec x lanes "
         + ", ".join(f"{n}: {t:.4f}" for n, t in lanes_ms.items())
         + f"; events {event_ms:.4f}, wrapper {w_ms:.4f})"
         + f", plain {p_ms:.3f} ms, bound {e['bound_ms']:.4f} ms "
@@ -1307,9 +1329,9 @@ def _roi_pool_entry(label, feat, rois, kw, launches):
     return e
 
 
-def _roi_pool_backward_check(label, feat, rois, grad, kw, widths):
+def _roi_pool_backward_check(label, feat, rois, grad, kw, chunks):
     """The backward through the wrapper and, through the C interface, at
-    each chunk width in ``widths``, each against autograd through the
+    each (vec, lanes) chunk in ``chunks``, each against autograd through the
     plain version (computed once) on a map of ``feat``'s type
     (``_grad_close``: float32 within 1e-5, the atomic order over
     overlapping bins moving the last bits; bfloat16 within one spacing of
@@ -1324,44 +1346,45 @@ def _roi_pool_backward_check(label, feat, rois, grad, kw, widths):
     out = roi_pool_plain(f, rois, **kw)
     (want,) = torch.autograd.grad(out, f, grad, retain_graph=True)
     gots = [("wrapper", roi_pool_backward(grad, feat, rois, **kw))]
-    for n in widths:
-        call = roi_pool_launcher(feat, rois, kw, grad, n)
+    for ch in chunks:
+        call = roi_pool_launcher(feat, rois, kw, grad, ch)
         call()
-        gots.append((n, call.out))
+        gots.append((ch, call.out))
     torch.cuda.synchronize()
     err, scale = 0.0, 0.0
-    for n, got in gots:
+    for ch, got in gots:
         ok, e, scale = _grad_close(got, want, feat.dtype)
         err = max(err, e)
         if not ok:
-            raise RuntimeError(f"roi_pool_backward {label} (lanes {n}): max "
-                               f"err {e} (max |want| {scale})")
+            raise RuntimeError(f"roi_pool_backward {label} (chunk {ch}): "
+                               f"max err {e} (max |want| {scale})")
     return err, scale, (out, f)
 
 
 def _roi_pool_backward_entry(label, feat, rois, grad, kw, launches):
     """The RoIPool backward on the train path's own (map, RoIs, output
     gradient), and on the tie map, each against the plain version's
-    autograd, through the wrapper and at each chunk width. ``kernel_ms``
+    autograd, through the wrapper and at each chunk. ``kernel_ms``
     is the device time (``graph_ms``) of every pass of one backward call
-    (``roi_pool_launcher`` with ``grad``: the zero fill and the kernel),
+    (``roi_pool_launcher`` with ``grad``: every pass of the C call),
     held against a bound that counts the whole map gradient's write."""
     import torch
     from tllod_torch.ops.roi_pool import roi_pool_backward
 
     p = kw["out_size"]
     grad = grad.to(feat.dtype)
-    widths = _lane_widths(feat, p, backward=True)
+    chunks = _chunks(feat, p, backward=True)
+    names = _chunk_names(chunks)
     err, scale, (out, f) = _roi_pool_backward_check(label, feat, rois, grad,
-                                                    kw, widths)
+                                                    kw, chunks)
     tie_err, tie_scale, _ = _roi_pool_backward_check(
-        f"{label} (tie map)", _tie_map(feat), rois, grad, kw, widths)
+        f"{label} (tie map)", _tie_map(feat), rois, grad, kw, chunks)
     w_ms = cuda_ms(lambda: roi_pool_backward(grad, feat, rois, **kw),
                    reps=50)
-    lanes_ms = {n: graph_ms(roi_pool_launcher(feat, rois, kw, grad, n))
-                for n in widths}
+    lanes_ms = {n: graph_ms(roi_pool_launcher(feat, rois, kw, grad, ch))
+                for n, ch in zip(names, chunks)}
     event_ms = cuda_ms(roi_pool_launcher(feat, rois, kw, grad), reps=50)
-    k_ms = lanes_ms[widths[0]]
+    k_ms = lanes_ms[names[0]]
     p_ms = cuda_ms(lambda: torch.autograd.grad(out, f, grad,
                                                retain_graph=True), reps=3)
     b, h, w, c = feat.shape
@@ -1378,12 +1401,13 @@ def _roi_pool_backward_entry(label, feat, rois, grad, kw, launches):
                k_ms, p_ms, nbytes, 2 * area * c, tolerance=tol,
                max_abs_want=scale, tie_map_max_abs_err=tie_err,
                tie_map_max_abs_want=tie_scale, wrapper_ms=w_ms,
-               event_ms=event_ms, lanes=widths[0], lanes_ms=lanes_ms,
+               event_ms=event_ms, lanes=names[0], lanes_ms=lanes_ms,
                distinct_map_pixels=covered, bin_pixels=area)
     e["share_of_bound"] = e["bound_ms"] / k_ms
     log(f"[train-parity] roi_pool_backward {e['shape']}: max err {err:.3g} "
         f"(max |want| {scale:.3g}; tie map {tie_err:.3g} of "
-        f"{tie_scale:.3g}), kernel {k_ms:.4f} ms (fill and kernel; lanes "
+        f"{tie_scale:.3g}), kernel {k_ms:.4f} ms (every pass; vec "
+        "x lanes "
         + ", ".join(f"{n}: {t:.4f}" for n, t in lanes_ms.items())
         + f"; events {event_ms:.4f}, wrapper {w_ms:.4f})"
         + f", plain {p_ms:.3f} ms, bound {e['bound_ms']:.4f} ms "
@@ -1412,10 +1436,7 @@ def _roi_pool_sets(feat, main_rois, kw):
     rows, bins that clip empty) at the main path's P, then all of them with
     the main path's RoIs at P = 3 and P = 15, and the main path's RoIs on
     the map cut to a channel count that is not a multiple of 4: each
-    through the forward (``torch.equal`` on the map and its tie map) and
-    the backward (within 1e-5 of autograd through the plain version, on
-    both maps), through the wrapper and at each chunk width that takes the
-    map. Returns their records."""
+    through ``_check_pool_sets``. Returns their records."""
     import torch
 
     sets = {"edge rois": (_edge_rois(feat, kw), kw),
@@ -1426,36 +1447,107 @@ def _roi_pool_sets(feat, main_rois, kw):
         sets[f"main path, edge and regimes, P={p}"] = (
             every, dict(kw, out_size=p))
     odd = feat[..., :feat.shape[-1] - 3].contiguous()
-    rng = torch.Generator(device=feat.device).manual_seed(13)
+    sets = {label: (feat, rois, skw) for label, (rois, skw) in sets.items()}
+    sets["main path, C % 4 = 1"] = (odd, main_rois, kw)
+    return _check_pool_sets(sets, 13)
+
+
+def _check_pool_sets(sets, seed):
+    """Each (map, RoIs, kw) of ``sets`` through the forward
+    (``torch.equal`` on the map and its tie map) and the backward (a normal
+    output gradient drawn from ``seed``; ``_grad_close`` against autograd
+    through the plain version, on both maps), through the wrapper and at
+    each chunk width that takes the map. Returns their records."""
+    import torch
+
     records = []
-    for label, (rois, skw) in [*sets.items(),
-                               ("main path, C % 4 = 1", (main_rois, kw))]:
-        f = odd if label.endswith("C % 4 = 1") else feat
+    rng = None
+    for label, (f, rois, skw) in sets.items():
+        if rng is None:
+            rng = torch.Generator(device=f.device).manual_seed(seed)
         p = skw["out_size"]
-        widths = _lane_widths(f, p)
+        chunks = _chunks(f, p)
+        bwd_chunks = _chunks(f, p, backward=True)
         tie = _tie_map(f)
         g = torch.randn((rois.shape[0], p, p, f.shape[-1]),
                         device=f.device, generator=rng)
         errs = []
         for name, m in ((label, f), (f"{label} (tie map)", tie)):
-            _roi_pool_forward_check(name, m, rois, skw, widths)
+            _roi_pool_forward_check(name, m, rois, skw, chunks)
             errs.append(_roi_pool_backward_check(name, m, rois, g, skw,
-                                                 widths)[:2])
+                                                 bwd_chunks)[:2])
         covered, area = _roi_pool_work(f.shape, rois, skw)
         rec = {"set": label, "dtype": str(f.dtype)[6:],
-               "rois": rois.shape[0], "out_size": p,
-               "channels": f.shape[-1], "lanes": widths,
+               "map": list(f.shape), "rois": rois.shape[0], "out_size": p,
+               "channels": f.shape[-1], "lanes": _chunk_names(chunks),
+               "bwd_lanes": _chunk_names(bwd_chunks),
                "bwd_max_abs_err": max(e for e, _ in errs),
                "bwd_max_abs_want": max(s for _, s in errs),
                "distinct_map_pixels": covered, "bin_pixels": area}
         records.append(rec)
         log(f"[parity] roi_pool {rec['dtype']} {label}: {rec['rois']} "
-            f"rois, P={p}, C="
-            f"{rec['channels']}: forward exact (lanes "
-            + "/".join(map(str, widths)) + ", and on the tie map); backward "
-            f"err {rec['bwd_max_abs_err']:.3g} of "
+            f"rois, P={p}, map " + "x".join(map(str, f.shape))
+            + ": forward exact (chunks " + "/".join(rec["lanes"])
+            + ", and on the tie map); backward (chunks "
+            + "/".join(rec["bwd_lanes"]) + ") err "
+            f"{rec['bwd_max_abs_err']:.3g} of "
             f"{rec['bwd_max_abs_want']:.3g} (both maps)")
     return records
+
+
+def _bf16_pool_edge_sets(c3, c3_rois, c4, kw3, kw4):
+    """The bfloat16 kernels' own edges, on PA-ATF's bfloat16 c3 map (and
+    c4 cut to C = 509) with its gt rows: a RoI over the whole map (every
+    tile of the backward's plan touched); boxes 29-300 columns wide, past
+    28 and 56 columns (a bfloat16 build that staged fewer columns cut such
+    boxes into column tiles); small
+    boxes whose bins overlap by a row or column across the 4-pixel tiles'
+    edges; a batch-2 map with batch indices -1 and 2 (both read image 0);
+    and the whole map and wide boxes at C = 509 (1-element loads). Returns
+    {label: (map, RoIs, kw)} for ``_check_pool_sets``."""
+    import torch
+
+    _, h, w, _ = c3.shape
+    s = 1.0 / kw3["spatial_scale"]
+    dev = c3.device
+    rng = np.random.RandomState(17)
+
+    def rows(boxes):
+        return torch.tensor(boxes, dtype=torch.float32, device=dev)
+
+    whole = rows([[0, 0, 0, (w - 1) * s, (h - 1) * s]])
+    wide = []
+    for cols in (29, 57, 75, 120, 200, w):
+        x1 = rng.randint(0, w - cols + 1)
+        y1 = rng.randint(0, h - 20)
+        wide.append([0, x1 * s, y1 * s, (x1 + cols - 1) * s,
+                     min(y1 + rng.randint(8, 60), h - 1) * s])
+    wide = rows(wide)
+    cross = []
+    for _ in range(24):
+        # starts a row or column before or after a tile edge, extents
+        # 8-40 that 7 does not divide: neighbouring bins share a cell
+        ext = rng.randint(8, 41, 2)
+        ext += ext % 7 == 0
+        y1 = 4 * rng.randint(1, (h - ext[1]) // 4) + rng.randint(-1, 2)
+        x1 = 4 * rng.randint(1, (w - ext[0]) // 4) + rng.randint(-1, 2)
+        cross.append([0, x1 * s, y1 * s, (x1 + ext[0] - 1) * s,
+                      (y1 + ext[1] - 1) * s])
+    cross = rows(cross)
+    two = torch.cat([c3, torch.flip(c3, (1, 2))]).contiguous()
+    b2 = c3_rois.clone()
+    b2[: b2.shape[0] // 2, 0] = 1
+    b2 = torch.cat([b2, rows([[-1, 30 * s, 10 * s, 140 * s, 90 * s],
+                              [2, 150 * s, 40 * s, 290 * s, 140 * s]])])
+    odd = c4[..., :509].contiguous()
+    odd_rois = torch.cat([whole, wide])     # image coordinates: any tap
+    return {
+        "bf16 c3, whole map and gt": (c3, torch.cat([whole, c3_rois]), kw3),
+        "bf16 c3, boxes 29-300 columns wide": (c3, wide, kw3),
+        "bf16 c3, bins across tile edges": (c3, cross, kw3),
+        "bf16 c3 batch 2, indices -1 and 2": (two, b2, kw3),
+        "bf16 c4 at C = 509, whole map and wide boxes": (odd, odd_rois, kw4),
+    }
 
 
 def _sampled_proposal_check(model, cfg, seed=7):
@@ -3169,9 +3261,10 @@ def bf16_phase(spec, cfg, seed, out_dir):
     profiled step (busy, kinds); then every RoIAlignAvg and RoIPool call of
     a step held to its plain version on its own bfloat16 tensors (forward
     ``torch.equal``, backward within one bfloat16 spacing + 1e-5 x
-    max|want|), PA-ATF's c3 map also on RoIs across columns 256-300 and its
-    c5 map on phase 4's RoIPool sets. Returns (kernel entries, summary,
-    (model, extra, optimizer, source, target))."""
+    max|want|), PA-ATF's c3 map also on RoIs across columns 256-300, its
+    c5 map on phase 4's RoIPool sets and its c3 and c4 maps on the bfloat16
+    kernels' own edges (``_bf16_pool_edge_sets``). Returns (kernel entries,
+    summary, (model, extra, optimizer, source, target))."""
     import torch
     from tllod_torch.config import Config, cfg_from_list
     from tllod_torch.ops import _kernels
@@ -3282,6 +3375,9 @@ def bf16_phase(spec, cfg, seed, out_dir):
                             device=dev), kw, 0)]
         c5 = pool_calls[-1]
         sets = _roi_pool_sets(c5["feat"], c5["rois"], c5["kw"])
+        sets += _check_pool_sets(_bf16_pool_edge_sets(
+            c3["feat"], c3["rois"], pool_calls[1]["feat"], kw,
+            pool_calls[1]["kw"]), 19)
     summary = {"ms_per_step": ms, "step_ms": times, "busy_ms": busy,
                "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
                "peak_memory_gib": peak, "launches": launches,

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""RoIPool, RoICrop or RoIAlignAvg device times of two checkouts of this
-repository, in turns on one NVIDIA GPU.
+"""RoIPool, RoICrop or RoIAlignAvg device times, or PA-ATF's bfloat16 train
+step, of two checkouts of this repository, in turns on one NVIDIA GPU.
 
     python3 roi_pool_ab.py OLD_CHECKOUT [NEW_CHECKOUT]
-                           [--op pool|crop|align] [--sites DIR] [--seed 0]
+                           [--op pool|crop|align|step] [--sites DIR]
+                           [--seed 0]
 
 ``NEW_CHECKOUT`` defaults to the checkout that holds this script. Each
 checkout's ``tllod_torch.ops.roi_pool`` (``--op crop``:
@@ -19,15 +20,19 @@ old, new, new, old. Every process makes the same inputs from ``--seed``.
   ``chip_smoke.make_train_batch`` draws them on a 600x1200 image and 35
   zero-padded rows, and an output gradient that is 0 on the padded rows;
 - the eval map 1x37x75x512 at stride 16 with 300 proposals
-  (``POOLING_MODE='pool'``, forward only).
+  (``POOLING_MODE='pool'``, forward only);
+- the three taps again with the same RoIs, map and output gradient cast to
+  bfloat16 (PA-ATF under ``--bf16``).
 
 For each it checks ``roi_pool_forward`` against the checkout's
 ``roi_pool_plain`` (``torch.equal``) and ``roi_pool_backward`` against
-autograd through it (atol 1e-5 * max|want|, rtol 1e-5), then times on the
-device: 20 calls captured in one CUDA graph, the median of 5 replays
-between CUDA events. ``fwd_ms`` is the forward wrapper, ``bwd_ms`` the
-backward wrapper with every device pass it issues (the map gradient's fill
-included), ``fill_ms`` a ``torch.zeros`` of the map gradient alone.
+autograd through it (float32: atol 1e-5 * max|want|, rtol 1e-5; bfloat16:
+one bfloat16 spacing + 1e-5 * max|want|, ``chip_smoke._grad_close``), then
+times on the device: 20 calls captured in one CUDA graph, the median of 5
+replays between CUDA events. ``fwd_ms`` is the forward wrapper, ``bwd_ms``
+the backward wrapper with every device pass it issues (the map gradient's
+fill and, at bfloat16, its rounding included), ``fill_ms`` a
+``torch.zeros`` of the map gradient alone, in the map's type.
 
 ``--op crop``: ``chip_smoke.py``'s ``CROP_SETS`` (each main-path shape of
 the crop: ReLU'd normal maps, ``_crop_rois``' proposal-like RoIs) at both
@@ -47,12 +52,28 @@ of its phases taken out (wrong by design).
 
 ``--op align``: RoIAlignAvg at the eval path's batch-1 shape (the ReLU'd
 1x37x75x512 map, the 300 proposals of ``--op pool``'s eval site, P = 7),
-with a float32 and a bfloat16 map: ``roi_align_avg`` ``torch.equal`` to
-``roi_align_avg_plain``, ``roi_align_avg_backward`` within
-``chip_smoke._grad_close`` of autograd through it; ``fwd_ms`` the forward
-wrapper, ``bwd_ms`` the backward wrapper (its fill included) on the
-(R, C, P, P) gradient fc6's flatten hands back, ``fill_ms`` the fill
-alone.
+with a float32 and a bfloat16 map, and at DAF's train shapes (256 and 300
+RoIs drawn the same way, on the float32 map): ``roi_align_avg``
+``torch.equal`` to ``roi_align_avg_plain``, ``roi_align_avg_backward``
+within ``chip_smoke._grad_close`` of autograd through it; ``fwd_ms`` the
+forward wrapper, ``bwd_ms`` the backward wrapper (its fill included) on the
+(R, C, P, P) gradient fc6's flatten hands back, ``fill_ms`` the fill alone.
+Beside them the library yardstick, which nothing on the path calls:
+``F.grid_sample`` (bilinear, zero padding, ``align_corners=True``) at the
+(P+1)^2 sample points of every RoI stacked as one (1, R(P+1), P+1, 2) grid,
+then ``F.avg_pool2d(2, stride=1)``: the same function but at the map's last
+row and column and outside it, and with the R - 1 windows that straddle two
+RoIs. ``lib_fwd_ms`` is its forward (CUDA graph), ``lib_bwd_ms`` autograd's
+map gradient through it (CUDA events around 10 calls, host gaps included),
+``lib_max_abs_diff`` its largest distance from the plain version.
+
+``--op step``: PA-ATF's ``--bf16`` train step as ``chip_smoke.py``'s phase
+5e takes it (its model, images and SGD, seed 0), with each checkout's own
+``chip_smoke.py`` and package: ``ms_per_step`` the median of 5 eager steps
+after 2 warm-ups, ``peak_gib`` the peak memory allocated over them,
+``busy_ms`` the device's busy time of one profiled step, ``*_kind_ms`` its
+time by kind (``pool``, ``copy/fill``, ``roi_pool``), ``roi_pool_ms`` the
+RoIPool kernels' device time in it.
 
 It prints the card's name and power limit, one JSON line per process, and
 last one JSON object with each checkout's mean of its two turns.
@@ -70,6 +91,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TAPS = (("c3", 150, 300, 256, 4), ("c4", 75, 150, 512, 8),
         ("c5", 37, 75, 512, 16))
 IM_H, IM_W, N_GT, N_ROWS, N_EVAL, P = 600, 1200, 15, 50, 300, 7
+MEANS = ("ms_per_step", "peak_gib")  # averaged over turns with the *_ms
 
 
 def device_ms(fn, reps=20, replays=5):
@@ -119,8 +141,9 @@ def eval_rois(rng, device):
     return torch.tensor(boxes, dtype=torch.float32, device=device)
 
 
-def measure(label, rp, feat, rois, grad, stride):
-    """Check and time one site; ``grad`` None times the forward only."""
+def measure(label, rp, feat, rois, grad, stride, cs=None):
+    """Check and time one site; ``grad`` None times the forward only. A
+    bfloat16 map's backward is held by ``cs._grad_close``."""
     import torch
 
     kw = {"out_size": P, "spatial_scale": 1.0 / stride}
@@ -135,12 +158,15 @@ def measure(label, rp, feat, rois, grad, stride):
                                         grad)
         got_g = rp.roi_pool_backward(grad, feat, rois, **kw)
         scale = want_g.abs().max().item()
-        if not torch.allclose(got_g, want_g, atol=1e-5 * scale, rtol=1e-5):
+        ok = (cs._grad_close(got_g, want_g, feat.dtype)[0]
+              if feat.dtype == torch.bfloat16 else
+              torch.allclose(got_g, want_g, atol=1e-5 * scale, rtol=1e-5))
+        if not ok:
             raise RuntimeError(f"{label}: backward differs from autograd")
         rec["bwd_ms"] = device_ms(
             lambda: rp.roi_pool_backward(grad, feat, rois, **kw))
         rec["fill_ms"] = device_ms(lambda: torch.zeros(
-            feat.shape, dtype=torch.float32, device=feat.device))
+            feat.shape, dtype=feat.dtype, device=feat.device))
     return rec
 
 
@@ -148,6 +174,7 @@ def worker(checkout, seed):
     import numpy as np
     import torch
 
+    cs = _chip_smoke()
     sys.path.insert(0, os.path.abspath(checkout))
     import tllod_torch.ops.roi_pool as rp
     _own(rp, checkout)
@@ -155,14 +182,19 @@ def worker(checkout, seed):
     rng = np.random.RandomState(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     rois = gt_rois(rng, dev)
-    recs = []
+    recs, taps = [], []
     for name, h, w, c, stride in TAPS:
         feat = torch.randn((1, h, w, c), generator=gen, device=dev)
         grad = torch.randn((N_ROWS, P, P, c), generator=gen, device=dev)
         grad[N_GT:] = 0.0
+        taps.append((name, feat, grad, stride))
         recs.append(measure(f"PA-ATF {name}", rp, feat, rois, grad, stride))
     feat = torch.randn((1, 37, 75, 512), generator=gen, device=dev)
     recs.append(measure("eval pool", rp, feat, eval_rois(rng, dev), None, 16))
+    for name, feat, grad, stride in taps:
+        recs.append(measure(f"PA-ATF {name} bf16", rp,
+                            feat.to(torch.bfloat16), rois,
+                            grad.to(torch.bfloat16), stride, cs))
     return recs
 
 
@@ -211,9 +243,68 @@ def _chip_smoke():
     return cs
 
 
+def _align_library(f, rois, kw):
+    """``F.grid_sample`` at every RoI's (P+1)^2 sample points, stacked as
+    one (1, R(P+1), P+1, 2) grid on the (1, C, H, W) view of the map, then
+    ``F.avg_pool2d(2, stride=1)``: RoIAlignAvg's yardstick (the module
+    docstring). Returns (a call of its forward, a call of autograd's map
+    gradient through it, its (R, P, P, C) result)."""
+    import torch
+    import torch.nn.functional as F
+    from tllod_torch.ops.roi_align import _grid_coords
+
+    _, h, w, c = f.shape
+    r, p = rois.shape[0], kw["out_size"] + 1
+    ys, xs = _grid_coords(rois[:, 1:5], p, kw["spatial_scale"])
+    grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1],
+                       -1).reshape(1, r * p, p, 2).to(f.dtype)
+
+    def run(x):
+        out = F.grid_sample(x.permute(0, 3, 1, 2), grid, mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+        return F.avg_pool2d(out, 2, stride=1)
+
+    def fwd():
+        with torch.no_grad():
+            return run(f)
+
+    leaf = f.detach().requires_grad_(True)
+    out = run(leaf)
+    ones = torch.ones_like(out)
+
+    def bwd():
+        return torch.autograd.grad(out, leaf, ones, retain_graph=True)
+
+    # RoI k's P x P windows: rows k (P+1) .. k (P+1) + P - 1
+    o = fwd()[0]
+    got = torch.cat([o, o[:, :1]], 1).reshape(c, r, p, p - 1)[
+        :, :, :-1].permute(1, 2, 3, 0)
+    return fwd, bwd, got
+
+
+def event_ms(fn, reps=10, rounds=5):
+    """Median device ms of one ``fn()`` over ``rounds`` rounds of ``reps``
+    calls between CUDA events (the host's gaps between calls included)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def align_worker(checkout, seed):
     """``--op align``: RoIAlignAvg at the eval path's batch-1 shape, float32
-    and bfloat16, checked and timed."""
+    and bfloat16, and at DAF's train shapes, checked and timed, each beside
+    its library yardstick."""
     import numpy as np
     import torch
 
@@ -229,31 +320,101 @@ def align_worker(checkout, seed):
                                   device=dev))
     grad = torch.randn((N_EVAL, P, P, 512), generator=gen, device=dev)
     kw = {"out_size": P, "spatial_scale": 1.0 / 16}
+    sites = [(f"eval 1x37x75x512, {N_EVAL} rois", rois, dtype)
+             for dtype in (torch.float32, torch.bfloat16)]
+    train = eval_rois(rng, dev)
+    sites += [(f"DAF train 1x37x75x512, {n} rois", train[:n], torch.float32)
+              for n in (256, 300)]
     recs = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for label, rois, dtype in sites:
         f = feat.to(dtype)
-        rcpp = grad.to(dtype).permute(0, 3, 1, 2).contiguous().permute(
-            0, 2, 3, 1)
+        rcpp = grad[:rois.shape[0]].to(dtype).permute(
+            0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
         leaf = f.clone().requires_grad_(True)
         want = ra.roi_align_avg_plain(leaf, rois, **kw)
         if not torch.equal(ra.roi_align_avg(f, rois, **kw), want):
-            raise RuntimeError(f"eval {dtype}: forward differs from the "
+            raise RuntimeError(f"{label} {dtype}: forward differs from the "
                                f"plain version")
         (want_g,) = torch.autograd.grad(want, leaf, rcpp)
         ok, err, scale = cs._grad_close(
             ra.roi_align_avg_backward(rcpp, rois, tuple(f.shape), **kw).to(
                 dtype), want_g, dtype)
         if not ok:
-            raise RuntimeError(f"eval {dtype}: backward off by {err} (max "
+            raise RuntimeError(f"{label} {dtype}: backward off by {err} (max "
                                f"|want| {scale})")
+        lib_fwd, lib_bwd, lib_out = _align_library(f, rois, kw)
         recs.append({
-            "site": f"eval 1x37x75x512, {N_EVAL} rois {str(dtype)[6:]}",
+            "site": f"{label} {str(dtype)[6:]}",
             "fwd_ms": device_ms(lambda: ra.roi_align_avg(f, rois, **kw)),
             "bwd_ms": device_ms(lambda: ra.roi_align_avg_backward(
                 rcpp, rois, tuple(f.shape), **kw)),
             "fill_ms": device_ms(lambda: torch.zeros(
-                f.shape, dtype=torch.float32, device=dev))})
+                f.shape, dtype=torch.float32, device=dev)),
+            "lib_fwd_ms": device_ms(lib_fwd),
+            "lib_bwd_ms": event_ms(lib_bwd),
+            "lib_max_abs_diff": (lib_out.float() - want.float()).abs().max()
+            .item()})
+        del lib_fwd, lib_bwd, lib_out
     return recs
+
+
+def step_worker(checkout, seed):
+    """``--op step``: PA-ATF's bf16 train step with the checkout's own
+    ``chip_smoke.py`` and package."""
+    import time
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.abspath(checkout))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(checkout, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    from tllod_torch.config import Config, cfg_from_list
+    from tllod_torch.ops import _kernels
+    from tllod_torch.train import train_step
+    _own(_kernels, checkout)
+    _kernels.build_all()
+    cfg = cfg_from_list(Config(), cs.VGG16_CITYSCAPE)
+    pa = next(s for s in cs.TRAIN_METHODS if s.name == "pa_atf")
+    dev = torch.device("cuda")
+    model, extra = pa.build(cfg, seed, dev, dtype=torch.bfloat16)
+    nc = len(pa.classes)
+    src = pa.add_fields(cs.make_train_batch(*pa.train_hw, 1, seed + 10, cfg,
+                                            dev, nc))
+    tgt = cs.make_train_batch(*pa.train_hw, 0, seed + 11, cfg, dev, nc)
+    opt = cs.phase_optimizer(pa, cfg, model)
+    torch.backends.cudnn.allow_tf32 = True
+
+    def step(i):
+        return train_step(model, pa.loss, opt, (src, tgt, *extra),
+                          seed=seed, step=i)
+
+    for i in range(2):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2, 7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = os.path.join(checkout, "output", "roi_pool_ab_step")
+    os.makedirs(out, exist_ok=True)
+    busy, _, top, kinds, _, _ = cs._profile_train_step(
+        step, 7, out, cfg.POOLING_SIZE, model.detector.dout_base_model, pa,
+        cfg.MAX_NUM_GT_BOXES, suffix="_bf16")
+    return [{"site": "PA-ATF --bf16 step",
+             "ms_per_step": float(np.median(times)), "peak_gib": peak,
+             "busy_ms": busy,
+             **{f"{k.replace('/', '_')}_kind_ms": kinds.get(k, 0.0)
+                for k in ("pool", "copy/fill", "roi_pool")},
+             "roi_pool_ms": sum(ms for n, ms, _ in top if "roi_pool" in n)}]
 
 
 def crop_worker(checkout, seed, checked=True, sites=None):
@@ -309,7 +470,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("old")
     ap.add_argument("new", nargs="?", default=HERE)
-    ap.add_argument("--op", choices=("pool", "crop", "align"),
+    ap.add_argument("--op", choices=("pool", "crop", "align", "step"),
                     default="pool")
     ap.add_argument("--unchecked", action="store_true",
                     help="--op crop: time without checking")
@@ -320,10 +481,11 @@ def main() -> int:
     args = ap.parse_args()
 
     if args.worker:
-        sites = (crop_worker(args.worker, args.seed, not args.unchecked,
-                             args.sites) if args.op == "crop"
-                 else align_worker(args.worker, args.seed)
-                 if args.op == "align" else worker(args.worker, args.seed))
+        sites = {"crop": lambda: crop_worker(args.worker, args.seed,
+                                             not args.unchecked, args.sites),
+                 "align": lambda: align_worker(args.worker, args.seed),
+                 "step": lambda: step_worker(args.worker, args.seed),
+                 "pool": lambda: worker(args.worker, args.seed)}[args.op]()
         print(json.dumps({"checkout": args.worker, "sites": sites}))
         return 0
 
@@ -350,9 +512,9 @@ def main() -> int:
     for side, (first, second) in runs.items():
         summary[side] = [
             {"site": a["site"], **{k: (a[k] + b[k]) / 2 for k in a
-                                   if k.endswith("_ms")},
-             **({"zero_samples": a["zero_samples"]} if "zero_samples" in a
-                else {})}
+                                   if k.endswith("_ms") or k in MEANS},
+             **{k: a[k] for k in ("zero_samples", "lib_max_abs_diff")
+                if k in a}}
             for a, b in zip(first, second)]
     print(json.dumps(summary))
     return 0

@@ -19,7 +19,7 @@ import torch
 from tllod_tpu.ops.roi_pool import roi_pool as j_roi_pool
 
 from tllod_torch.ops import _kernels
-from tllod_torch.ops.roi_pool import (lanes, roi_bins, roi_pool,
+from tllod_torch.ops.roi_pool import (chunk, lanes, roi_bins, roi_pool,
                                       roi_pool_backward, roi_pool_plain,
                                       vector_width)
 
@@ -142,19 +142,64 @@ def test_roi_pool_cpu_takes_the_plain_version_and_kernels_need_cuda():
     assert empty.shape == (0, 7, 7, 8)
 
 
-@pytest.mark.parametrize("backward", [False, True])
-def test_lanes_rule_thresholds(backward):
-    """32 lanes (128 channels a block) from 512 channels at P <= 16; below
-    that 16 forward (P <= 32) and 8 backward; 8 with 1-channel loads. Each
-    choice stays within the kernel's own limit P <= 2 * 256 / lanes."""
-    narrow = 8 if backward else 16
+@pytest.mark.parametrize("backward,dtype", [
+    pytest.param(False, "float32", id="False"),
+    pytest.param(True, "float32", id="True"),
+    pytest.param(False, "bfloat16", id="False-bfloat16"),
+    pytest.param(True, "bfloat16", id="True-bfloat16")])
+def test_lanes_rule_thresholds(backward, dtype):
+    """32 lanes (128 channels a block at 4 a lane) from 512 channels at P
+    <= 16; below that 16 forward (P <= 32) and, float32, 8 backward, while
+    bfloat16 takes 16 backward too (P <= 32); else 8; 8 with 1-channel
+    loads. Each choice stays within the kernel's own limit P <= 2 * 256 /
+    lanes, at every C and P the kernel takes."""
+    bf16 = dtype == "bfloat16"
+    narrow = 16 if bf16 or not backward else 8
     cases = [(512, 7, 4, 32), (1024, 16, 4, 32), (508, 7, 4, narrow),
              (256, 7, 4, narrow), (512, 17, 4, narrow),
              (256, 33, 4, 8), (509, 7, 1, 8), (512, 7, 1, 8)]
+    if bf16:
+        cases += [(512, 7, 8, 32), (256, 16, 4, 16), (256, 32, 4, 16),
+                  (512, 64, 4, 8)]
     for c, p, vec, want in cases:
-        got = lanes(c, p, vec, backward)
+        got = lanes(c, p, vec, backward, bf16)
         assert got == want, (c, p, vec, got)
         assert p <= 2 * 256 // got
+    for c in range(4, 2049, 4):
+        for p in range(1, 65):
+            for vec in ((4, 8, 1) if bf16 else (4, 1)):
+                assert p <= 2 * 256 // lanes(c, p, vec, backward, bf16), (
+                    c, p, vec)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_chunk_picks_the_load_width(backward):
+    """float32 loads 16 bytes (4 channels); bfloat16 8 bytes (4 channels),
+    and 16 bytes (8) only for the forward of a deep map (C >= 512, P <=
+    16); 1 channel where C or the alignment allows neither, each with the
+    lanes of ``lanes``."""
+    base = torch.zeros(1 << 16)
+    half = base.to(torch.bfloat16)
+
+    def f32(c):
+        return base[:3 * 5 * c].view(1, 3, 5, c)
+
+    def b16(c, shift=0):
+        return half[shift:shift + 3 * 5 * c].view(1, 3, 5, c)
+
+    deep = (8, 32) if not backward else (4, 32)
+    assert chunk(512, 7, f32(512), backward=backward) == (
+        4, lanes(512, 7, 4, backward))
+    assert chunk(256, 7, f32(256), backward=backward) == (
+        4, 8 if backward else 16)
+    assert chunk(512, 7, b16(512), backward=backward) == deep
+    assert chunk(512, 17, b16(512), backward=backward) == (4, 16)
+    assert chunk(256, 7, b16(256), backward=backward) == (4, 16)
+    assert chunk(516, 7, b16(516), backward=backward) == (4, 32)
+    assert chunk(509, 7, b16(509), backward=backward) == (1, 8)
+    # 8 bytes past a 16-byte boundary: 8-byte loads only
+    assert chunk(512, 7, b16(512, 4), backward=backward) == (4, 32)
+    assert chunk(512, 7, b16(512, 2), backward=backward) == (1, 8)
 
 
 def test_vector_width_needs_c_multiple_of_4_and_16_byte_alignment():

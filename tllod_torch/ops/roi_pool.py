@@ -26,18 +26,20 @@ value stays); RoIAlign gives zeros there instead.
 
 For CUDA tensors :func:`roi_pool` is a ``torch.autograd.Function`` over the
 kernels of ``csrc/roi_pool.cu`` (float32 and bfloat16), a block per RoI bin
-row and channel chunk (:func:`lanes`), with 16-byte loads when C is a
-multiple of 4 (float32) or 8 (bfloat16) and the data is 16-byte aligned
-(:func:`vector_width`). The forward writes (R, P, P, C) in the map's type,
-which PA-ATF's CLUB heads read as the channels-last NCHW view with no copy.
-The backward is one call of two device passes: the map gradient zeroed,
-then each bin row's share added into the pixels that hold its column
-maxima with atomics (the sum order over overlapping bins varies by run);
-at bfloat16 the sums go into a float32 scratch map and a third pass rounds
-it once into the bfloat16 map gradient. A bfloat16 map takes the JAX
-package's bfloat16 bin membership (:func:`bf16_member_edges`). The RoIs get
-no gradient. CPU tensors run :func:`roi_pool_plain`, which autograd
-differentiates.
+row and channel chunk (:func:`chunk`): float32 with 16-byte loads when C
+is a multiple of 4 and the data is 16-byte aligned; bfloat16 with 8-byte
+loads of 4 channels, or 16-byte loads of 8 for the forward of a deep map.
+The forward writes (R, P, P, C) in the map's type, which PA-ATF's CLUB
+heads read as the channels-last NCHW view with no copy. The backward is one
+C call: at float32 two device passes, the map gradient zeroed, then each
+bin row's share added into the pixels that hold its column maxima with
+atomics (the sum order over overlapping bins varies by run); at bfloat16
+three, the float32 sums zeroed only in the map tiles
+that a RoI's bins reach, the same atomic adds into them, and every element
+of the bfloat16 map gradient written once, each sum rounded once and 0
+outside the touched tiles. A bfloat16 map takes the JAX package's bfloat16
+bin membership (:func:`bf16_member_edges`). The RoIs get no gradient. CPU
+tensors run :func:`roi_pool_plain`, which autograd differentiates.
 
 Layouts are the JAX package's: ``feats`` (B, H, W, C), the NHWC view of a
 ``channels_last`` map; ``rois`` (R, 5) in input-image coordinates; the
@@ -55,30 +57,47 @@ from tllod_torch.ops import _kernels
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def vector_width(c: int, *tensors: torch.Tensor) -> int:
-    """The channels of a 16-byte load of the first tensor's type, 4
-    (float32) or 8 (bfloat16), when C is a multiple of it and every
-    tensor's data starts on a 16-byte boundary, else 1."""
-    wide = 16 // tensors[0].element_size()
-    if c % wide == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+def vector_width(c: int, *tensors: torch.Tensor, nbytes: int = 16) -> int:
+    """The channels of an ``nbytes`` load of the first tensor's type (16
+    bytes: 4 float32 or 8 bfloat16) when C is a multiple of it and every
+    tensor's data starts on an ``nbytes`` boundary, else 1."""
+    wide = nbytes // tensors[0].element_size()
+    if c % wide == 0 and all(t.data_ptr() % nbytes == 0 for t in tensors):
         return wide
     return 1
 
 
-def lanes(c: int, p: int, vec: int, backward: bool = False) -> int:
-    """Lanes of a kernel block's channel chunk, each ``vec`` channels of
-    16-byte loads (4 float32 or 8 bfloat16) or 1: 32 (128 float32 channels
-    a block) for at least 512 channels and P <= 16; else, with 16-byte
-    loads, 16 for the forward (P <= 32) and 8 for the backward; else 8.
+def lanes(c: int, p: int, vec: int, backward: bool = False,
+          bf16: bool = False) -> int:
+    """Lanes of a kernel block's channel chunk, each ``vec`` channels of one
+    load. float32 (16-byte loads of 4): 32 (128 channels a block) for at
+    least 512 channels and P <= 16; else 16 for the forward (P <= 32) and 8
+    for the backward. bfloat16 (loads of 4 or 8): the same, but 16 for the
+    backward too at P <= 32. 1-channel loads: 8.
     Wide chunks cut a deep map's blocks; narrow ones give a wide RoI's
-    columns more of the block's 256 threads (the fastest of the three at
-    each of PA-ATF's float32 taps on an H100; bfloat16 takes the same
-    rule)."""
+    columns more of the block's 256 threads (the fastest on PA-ATF's taps
+    on an H100, float32 and bfloat16 apart). Every choice keeps P <= 2 *
+    256 / lanes, the kernel's limit."""
     if vec == 1:
         return 8
     if c >= 512 and p <= 16:
         return 32
-    return 16 if not backward and p <= 32 else 8
+    return 16 if p <= 32 and (bf16 or not backward) else 8
+
+
+def chunk(c: int, p: int, *tensors: torch.Tensor,
+          backward: bool = False) -> tuple:
+    """(vec, lanes) of the kernels' channel chunk for these tensors, the
+    first the map: float32 loads 16 bytes (:func:`vector_width`);
+    bfloat16 16 bytes (8 channels) for the forward of a deep map (C >= 512,
+    P <= 16), else 8 bytes (4 channels, a thread's share as at float32);
+    1 channel where C or the alignment allows neither. Lanes by
+    :func:`lanes`."""
+    bf16 = tensors[0].dtype == torch.bfloat16
+    vec = vector_width(c, *tensors)
+    if bf16 and (backward or c < 512 or p > 16 or vec == 1):
+        vec = vector_width(c, *tensors, nbytes=8)
+    return vec, lanes(c, p, vec, backward, bf16)
 
 
 def _bin_ranges(lo: torch.Tensor, extent: torch.Tensor, p: int, limit: int):
@@ -232,12 +251,12 @@ def roi_pool_forward(feats: torch.Tensor, rois: torch.Tensor, *,
     r = rois.shape[0]
     out = torch.empty((r, out_size, out_size, c), dtype=feats.dtype,
                       device=feats.device)
-    vec = vector_width(c, feats)
+    vec, n = chunk(c, out_size, feats, out)
     lib = _lib()
     status = lib.tllod_roi_pool_forward(
         feats.data_ptr(), rois.data_ptr(), out.data_ptr(),
         _DTYPE_CODE[feats.dtype], b, h, w, c, r, out_size,
-        float(spatial_scale), vec, lanes(c, out_size, vec),
+        float(spatial_scale), vec, n,
         torch.cuda.current_stream(feats.device).cuda_stream)
     _kernels.check(lib, status, "roi_pool")
     _kernels.launches["roi_pool"] += 1
@@ -248,12 +267,13 @@ def roi_pool_backward(grad_out: torch.Tensor, feats: torch.Tensor,
                       rois: torch.Tensor, *, out_size: int,
                       spatial_scale: float) -> torch.Tensor:
     """The backward: (R, P, P, C) output gradient and the forward's map →
-    (B, H, W, C) map gradient in the map's type, zeroed and accumulated
-    with float32 atomics in one C call (one launch count for its device
-    passes; the sum order over overlapping bins varies by run; at bfloat16
-    the sums go into a float32 scratch map, rounded once into the result).
-    A gradient that is not (R, P, P, C)-contiguous is copied first, counted
-    in ``_kernels.launches["roi_pool_grad_copy"]``."""
+    (B, H, W, C) map gradient in the map's type, in one C call (one launch
+    count for its device passes; float32 atomic sums, whose order over
+    overlapping bins varies by run). At bfloat16 the sums go into a float32
+    buffer of the map's size, of which only the tiles that RoIs touch are
+    written, each rounded once into the result. A gradient that is not
+    (R, P, P, C)-contiguous is copied first, counted in
+    ``_kernels.launches["roi_pool_grad_copy"]``."""
     _check("roi_pool_backward", feats, rois, out_size)
     b, h, w, c = feats.shape
     r = rois.shape[0]
@@ -271,13 +291,14 @@ def roi_pool_backward(grad_out: torch.Tensor, feats: torch.Tensor,
     scratch = (torch.empty((b, h, w, c), dtype=torch.float32,
                            device=feats.device)
                if feats.dtype == torch.bfloat16 else None)
-    vec = vector_width(c, feats, grad_out, grad)
+    vec, n = chunk(c, out_size, feats, grad_out, grad,
+                   *([] if scratch is None else [scratch]), backward=True)
     lib = _lib()
     status = lib.tllod_roi_pool_backward(
         grad_out.data_ptr(), feats.data_ptr(), rois.data_ptr(),
         grad.data_ptr(), None if scratch is None else scratch.data_ptr(),
         _DTYPE_CODE[feats.dtype], b, h, w, c, r, out_size,
-        float(spatial_scale), vec, lanes(c, out_size, vec, backward=True),
+        float(spatial_scale), vec, n,
         torch.cuda.current_stream(feats.device).cuda_stream)
     _kernels.check(lib, status, "roi_pool_backward")
     _kernels.launches["roi_pool_backward"] += 1
