@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, drive, check.
 
     python3 chip_smoke.py [--seed 0] [--out output/chip_smoke]
-    python3 chip_smoke.py --only optim|crop|coco   # one phase alone
+    python3 chip_smoke.py --only optim|crop|coco|parallel   # one phase
+    python3 chip_smoke.py --only parallel-perturbed  # 5h (b) must fail
 
 Phases, each ending the run nonzero on failure:
 
@@ -496,12 +497,16 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(REPO, "output",
                                                   "chip_smoke"),
                     help="directory for the kernels JSON and the trace")
-    ap.add_argument("--only", choices=("optim", "crop", "coco"),
-                    help="build the kernels, then run phase 5f, 5i or 4c "
-                         "alone and print its summary; no other phase and "
-                         "no ok line. crop also keeps each train site's crop "
-                         "tensors under OUT/crop_sites, for roi_pool_ab.py "
-                         "--op crop --sites")
+    ap.add_argument("--only", choices=("optim", "crop", "coco", "parallel",
+                                       "parallel-perturbed"),
+                    help="build the kernels, then run phase 5f, 5i, 4c or "
+                         "5h's (b)-(d) alone and print its summary; no other "
+                         "phase and no ok line. crop also keeps each train "
+                         "site's crop tensors under OUT/crop_sites, for "
+                         "roi_pool_ab.py --op crop --sites; "
+                         "parallel-perturbed runs (b) with fc6's replayed "
+                         "update scaled by 1 + 1e-4 and fails unless the "
+                         "gate refuses it")
     args = ap.parse_args()
 
     import torch
@@ -549,6 +554,24 @@ def main() -> int:
         log("[coco] alone: " + json.dumps({"kernels": entries, **out},
                                           default=str))
         return 0
+    if args.only == "parallel":
+        out = {"world1": world1_phase(cfg, args.seed, args.out),
+               "two_ranks": two_rank_phase(args.seed, args.out)}
+        log("[parallel] alone: " + json.dumps(
+            {k: out["world1"]["fused"][k] for k in (
+                "repeatable_loss_rel", "repeatable_loss_rel_eager_eager",
+                "repeatable_update_gap",
+                "repeatable_update_gap_eager_eager")}))
+        return 0
+    if args.only == "parallel-perturbed":
+        with _perturbed_replays():
+            try:
+                world1_phase(cfg, args.seed, args.out)
+            except RuntimeError as e:
+                log(f"[parallel] perturbed: refused as it must be: {e}")
+                return 0
+        log("[parallel] perturbed: the gate passed a perturbed replay")
+        return 1
 
     # ---- 2. main path ----
     from tllod_torch.models.faster_rcnn import FasterRCNN
@@ -683,6 +706,13 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _card():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def _close(name, got, want, rtol, atol):
@@ -4076,6 +4106,10 @@ PAR_TENSOR_FLOOR = 2e-3
 PAR_NORM_SHIFT = 4.0
 
 
+# (d): (method, --sp) on a data 1 x model 2 grid (--tp 2) of the two ranks
+PAR_D = (("daf", False), ("daf", True), ("us_daf", True))
+
+
 def _method(name):
     return next(s for s in TRAIN_METHODS if s.name == name)
 
@@ -4238,8 +4272,11 @@ def world1_phase(cfg, seed, out_dir):
     Then PAR_LOOP_STEPS timed steps each way. Then ``TrainStepMulti``
     under the group: each graph replay (the gradient all-reduce and the
     loss terms' all-reduces captured) from the state of two eager DP steps,
-    held to them as ``fused_phase`` holds a replay, and eager DP against
-    graph DP ms/step. Returns the summary."""
+    its gaps printed; a second graph of the step captured and replayed under
+    ``_repeatable_step``, each replay held to two repeatable eager DP steps
+    from the same state (losses and update within twice their gap, or
+    PAR_FLOOR), as ``fused_phase`` holds its Adam gradients; and eager DP
+    against graph DP ms/step. Returns the summary."""
     import torch
     import tllod_torch.cli.da_runner as runner_mod
     from tllod_torch.cli.common import build_train_parser, check_train_args
@@ -4360,8 +4397,18 @@ def world1_phase(cfg, seed, out_dir):
     runner(opt.count, batches[:2])          # first sight, then the capture
     torch.cuda.synchronize()
     (captured,) = [g.launches for g in runner.graphs.values()]
+    # a second graph of the DP step, captured repeatable, for the gate:
+    # first sight, capture and one replay, then back to the state
+    st = save()
+    with _repeatable_step():
+        det_runner = TrainStepMulti(model, daf_loss, opt, seed=seed)
+        det_runner(opt.count, batches[:2])
+    restore(st)
+    torch.cuda.synchronize()
     loss_r = loss_e = 0.0
-    gap_r, gap_e = [], []
+    gap_r, gap_e = [], []           # the kernel path's, printed
+    det_r, det_e = [], []           # the repeatable path's, held
+    det_loss_r = det_loss_e = 0.0
     for args in batches:
         st = save()
         before = trained()
@@ -4371,16 +4418,33 @@ def world1_phase(cfg, seed, out_dir):
         m_e2 = eager(args)
         p_e2 = trained()
         restore(st)
+        with _repeatable_step():
+            d_e = eager(args)
+            pd_e = trained()
+            restore(st)
+            d_e2 = eager(args)
+            pd_e2 = trained()
+            restore(st)
+            d_r = det_runner(opt.count, [args])
+            pd_r = trained()
+            restore(st)
+        det_loss_r = max(det_loss_r, _loss_gap(
+            {k: v[0] for k, v in d_r.items()}, d_e))
+        det_loss_e = max(det_loss_e, _loss_gap(d_e2, d_e))
+        det_r.append(_update_gap(pd_e, pd_r, before))
+        det_e.append(_update_gap(pd_e, pd_e2, before))
         m_r = runner(opt.count, [args])
         loss_r = max(loss_r, _loss_gap({k: v[0] for k, v in m_r.items()},
                                        m_e))
         loss_e = max(loss_e, _loss_gap(m_e2, m_e))
         gap_r.append(_update_gap(p_e, trained(), before))
         gap_e.append(_update_gap(p_e, p_e2, before))
-        if float(m_r["fg_cnt"][0]) != float(m_e["fg_cnt"]):
+        if float(m_r["fg_cnt"][0]) != float(m_e["fg_cnt"]) or \
+                float(d_r["fg_cnt"][0]) != float(d_e["fg_cnt"]):
             raise RuntimeError("[parallel] a DP replay's fg_cnt differs "
                                "from the eager DP step's")
-        del st, before, p_e, p_e2
+        del st, before, p_e, p_e2, pd_e, pd_e2, pd_r
+    del det_runner
     times = {"eager": [], "graph": []}
     seq = [batches[i % PAR_FUSE_K] for i in range(10)]
     for _ in range(3):
@@ -4398,15 +4462,26 @@ def world1_phase(cfg, seed, out_dir):
         f"replays, each from the state of two eager DP steps: losses rel. "
         f"{loss_r:.3g} (eager-eager {loss_e:.3g}), update rel. L2 "
         f"{', '.join(f'{g:.3g}' for g in gap_r)} (eager-eager "
-        f"{', '.join(f'{g:.3g}' for g in gap_e)}); eager DP "
+        f"{', '.join(f'{g:.3g}' for g in gap_e)}; the kernel path, printed, "
+        f"not held); a second graph captured repeatable (cuDNN "
+        f"deterministic, the RoIAlignAvg backward plain), each replay from "
+        f"the state of two repeatable eager DP steps, held: losses rel. "
+        f"{det_loss_r:.3g} (eager-eager {det_loss_e:.3g}), update rel. L2 "
+        f"{', '.join(f'{g:.3g}' for g in det_r)} (eager-eager "
+        f"{', '.join(f'{g:.3g}' for g in det_e)}); eager DP "
         f"{e_ms:.3f} ms/step, graph DP {g_ms:.3f} ms/step (3 rounds of 10 "
         f"each way, in turns)")
-    if loss_r > max(2 * loss_e, PAR_FLOOR) \
-            or max(gap_r) > max(2 * max(gap_e), PAR_FLOOR):
-        raise RuntimeError("[parallel] DP replays part from eager DP steps "
-                           "beyond the eager gap")
+    # written so that a NaN fails
+    if not (det_loss_r <= max(2 * det_loss_e, PAR_FLOOR)
+            and max(det_r) <= max(2 * max(det_e), PAR_FLOOR)):
+        raise RuntimeError("[parallel] repeatable DP replays part from "
+                           "repeatable eager DP steps beyond the eager gap")
     fused.update(loss_rel=loss_r, loss_rel_eager_eager=loss_e,
                  update_gap=gap_r, update_gap_eager_eager=gap_e,
+                 repeatable_loss_rel=det_loss_r,
+                 repeatable_loss_rel_eager_eager=det_loss_e,
+                 repeatable_update_gap=det_r,
+                 repeatable_update_gap_eager_eager=det_e,
                  eager_ms=times["eager"], graph_ms=times["graph"],
                  eager_ms_median=e_ms, graph_ms_median=g_ms,
                  launches_per_replay=captured, eager_profile=prof_dp)
@@ -4423,6 +4498,31 @@ def world1_phase(cfg, seed, out_dir):
             "fused": fused}
 
 
+@contextlib.contextmanager
+def _perturbed_replays():
+    """While entered, each graph replay of ``TrainStepMulti`` scales the
+    update it made to the detector's fc6 weight by 1 + 1e-4: a fault phase
+    5h (b)'s gate must refuse (``--only parallel-perturbed``)."""
+    import torch
+    import tllod_torch.train as train
+
+    step = train.TrainStepMulti._cuda_step
+
+    def perturbed(self, args, i):
+        w = self.model.detector.head.fc6.weight
+        before = w.detach().clone()
+        out = step(self, args, i)
+        if self.graphs:
+            with torch.no_grad():
+                w.add_((w - before) * 1e-4)
+        return out
+    train.TrainStepMulti._cuda_step = perturbed
+    try:
+        yield
+    finally:
+        train.TrainStepMulti._cuda_step = step
+
+
 def _raise_norm_biases(model):
     """Each BatchStatNorm's bias raised by PAR_NORM_SHIFT times its scale
     (MAD's encoders and decoders; none elsewhere in PAR_C). At biases
@@ -4437,6 +4537,317 @@ def _raise_norm_biases(model):
         for m in model.modules():
             if type(m).__name__ == "BatchStatNorm":
                 m.bias.add_(PAR_NORM_SHIFT * m.scale)
+
+
+def _grid_case(name, seed, dev):
+    """(d)'s B = 1 case of ``name``: its spec, config, model (weights from
+    ``seed``, a ResNet's stem calibrated on the source image) and extra
+    arguments, and its source and target images at the method's train
+    size."""
+    from tllod_torch.config import Config, cfg_from_list
+
+    spec = _method(name)
+    cfg = cfg_from_list(Config(), spec.cfg_pairs or VGG16_CITYSCAPE)
+    model, extra = spec.build(cfg, seed, dev)
+    nc = len(spec.classes)
+    src = spec.add_fields(make_train_batch(*spec.train_hw, 1, seed + 80,
+                                           cfg, dev, nc))
+    tgt = make_train_batch(*spec.train_hw, 0, seed + 81, cfg, dev, nc)
+    if spec.net.startswith("res"):
+        calibrate_stem(model.detector, src["im_data"])
+    return spec, cfg, model, extra, src, tgt
+
+
+def _grid_step(case, seed, sel, ref=None):
+    """One SGD step of a ``_grid_case`` from the model's state, on this
+    rank's shards where ``mesh.parallelize`` cut it: the metrics, the
+    selections, and every trained parameter's gradient and update,
+    gathered to full tensors on the host; the step's seconds and
+    launches; its ``_ReluDecisions`` (aligned to ``ref``'s, a reference
+    step's, where given)."""
+    import torch
+    from tllod_torch.ops import _kernels
+    from tllod_torch.parallel import mesh
+    from tllod_torch.train import StepRandom, _loss_and_grads, step_metrics
+
+    spec, cfg, model, extra, src, tgt = case
+    opt = phase_optimizer(spec, cfg, model)
+    dims = mesh.split_dims(model)
+    named = opt.named_params()
+    before = {n: t.detach().to("cpu", copy=True) for n, t in
+              mesh.gather_named(named, dims).items()}
+    rec = _ReluDecisions(model, ref)
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sel:
+        out, loss = _loss_and_grads(model, spec.loss, opt,
+                                    (src, tgt, *extra),
+                                    StepRandom(seed, 7, src["im_data"].device))
+    rec.remove()
+    m = {k: float(v) for k, v in step_metrics(out, loss).items()}
+    grads = {n: g.detach().to("cpu", copy=True) for n, g in mesh.gather_named(
+        {n: torch.zeros_like(p) if p.grad is None else p.grad
+         for n, p in named.items()}, dims).items()}
+    opt.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    upd = {n: t.detach().cpu() - before[n] for n, t in
+           mesh.gather_named(named, dims).items()}
+    return m, [t.cpu() for t in sel.pop()], grads, upd, secs, launches, rec
+
+
+# the most pre-activations a ReLU-fed layer's call keeps for (d)'s
+# alignment: the instance heads', the RPN conv's, the domain heads' maps
+RELU_KEEP = 1 << 22
+
+
+class _ReluDecisions:
+    """Forward hooks on ``model``'s ReLU-fed layers (``RELU_FED``) and its
+    ``ins_da`` for (d). Without ``ref`` they keep each call's
+    pre-activations (up to RELU_KEEP of them) and ``ins_da``'s
+    probabilities. With ``ref``, a reference step's record, a
+    pre-activation whose sign differs from the reference's at the same
+    place takes the reference's value, its gradient path kept, as
+    ``tests/torch_parity.aligned_decisions`` takes JAX's side of a
+    decision: the two steps sum in other orders (fc7's partial products
+    over the model group), and a ReLU within that rounding of its kink
+    sends a whole row's gradient another way. ``flips`` counts them by
+    layer; ``worst`` is the largest of the flipped reference values over
+    the largest difference of the two steps among that layer's unflipped
+    pre-activations (at most 1 where each flip is within the rounding the
+    steps show). ``ins_da``'s probabilities are aligned the same way on
+    the BCE clip's sides (below, at or above each bound, as float32
+    compares them; a row at a bound takes half its gradient, past it
+    none, and a sigmoid saturates onto ``1 - 1e-7`` or past it by an
+    ulp): ``crossings`` counts the rows aligned, ``clipped`` the
+    reference's rows at or past a bound, and ``worst`` covers their
+    distances too, against the largest difference among the other
+    rows."""
+
+    def __init__(self, model, ref=None):
+        from tllod_torch.methods.da_modules import InstanceDA
+        from tllod_torch.methods.us_daf import InstanceDAScale
+
+        self.ref = ref
+        self.values, self.probs, self.calls = {}, [], {}
+        self.n_probs = 0
+        self.flips, self.worst = {}, 0.0
+        self.crossings = self.clipped = 0
+        self.handles = [
+            mod.register_forward_hook(
+                lambda mod, inp, out, name=name: self._relu(name, out))
+            for name, mod in model.named_modules()
+            if RELU_FED.search(name)]
+        if isinstance(getattr(model, "ins_da", None),
+                      (InstanceDA, InstanceDAScale)):
+            self.handles.append(model.ins_da.register_forward_hook(
+                lambda mod, inp, out: self._probs(out)))
+
+    def _relu(self, name, out):
+        k = self.calls[name] = self.calls.get(name, -1) + 1
+        if self.ref is None:
+            if out.numel() <= RELU_KEEP:
+                self.values.setdefault(name, {})[k] = out.detach().cpu()
+            return None
+        want = self.ref.values.get(name, {}).get(k)
+        if want is None or want.shape != out.shape:
+            return None
+        import torch
+        want = want.to(out.device)
+        got = out.detach()
+        flip = (want > 0) != (got > 0)
+        if not flip.any():
+            return None
+        noise = float((got - want).abs()[~flip].max())
+        self.worst = max(self.worst, float(want.abs()[flip].max())
+                         / max(noise, 1e-30))
+        self.flips[name] = self.flips.get(name, 0) + int(flip.sum())
+        return out + torch.where(flip, want - got, 0.0)
+
+    def _probs(self, out):
+        import torch
+        k, self.n_probs = self.n_probs, self.n_probs + 1
+        got = out.detach()
+        if self.ref is None:
+            self.probs.append(got.cpu())
+            return None
+        if k >= len(self.ref.probs) or self.ref.probs[k].shape != got.shape:
+            return None
+        want = self.ref.probs[k].to(got.device)
+        lo = torch.tensor(1e-7, dtype=got.dtype, device=got.device)
+        hi = torch.tensor(1.0 - 1e-7, dtype=got.dtype, device=got.device)
+
+        def side(q):
+            return torch.sign(q - lo) + torch.sign(q - hi)
+        cross = side(got) != side(want)
+        self.clipped += int((side(want) != 0).sum())
+        if not cross.any():
+            return None
+        gap = (got - want).abs()
+        self.worst = max(self.worst, float(gap[cross].max())
+                         / max(float(gap[~cross].max()), 1e-30))
+        self.crossings += int(cross.sum())
+        return out + torch.where(cross, want - got, 0.0)
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def _grid_shaped_heads(tp=2):
+    """While entered, ``VGG16Head`` runs as the ranks of a ``--tp`` grid
+    run it, in one process: fc6 as ``tp`` products of a block of its output
+    columns, fc7 as the sum of ``tp`` products over blocks of its inputs,
+    its bias added after. The same function in another float32 order: the
+    single-process step's reorder gap in (d)."""
+    import torch
+    import torch.nn.functional as F
+    from tllod_torch.models.backbones import VGG16Head, dropout
+
+    saved = VGG16Head.forward
+
+    def forward(self, pooled, *, deterministic=True, rng=None):
+        r = pooled.shape[0]
+        x = pooled.permute(0, 3, 1, 2).reshape(r, -1)
+        w6, b6, w7 = self.fc6.weight, self.fc6.bias, self.fc7.weight
+        n = w6.shape[0] // tp
+        blocks = [slice(i * n, (i + 1) * n) for i in range(tp)]
+        x = F.relu(torch.cat([F.linear(x, w6[c].contiguous(),
+                                       b6[c].contiguous()) for c in blocks],
+                             1))
+        if not deterministic:
+            x = dropout(x, 0.5, rng)
+        y = sum(F.linear(x[:, c].contiguous(), w7[:, c].contiguous())
+                for c in blocks)
+        x = F.relu(y + self.fc7.bias)
+        if not deterministic:
+            x = dropout(x, 0.5, rng)
+        return x
+    VGG16Head.forward = forward
+    try:
+        yield
+    finally:
+        VGG16Head.forward = saved
+
+
+def _grid_refs(seed, dev, sel):
+    """(d)'s references, before the group exists: for each method of PAR_D,
+    the single-process step from the seeded state (the reference), again
+    (each quantity's eager-vs-eager gap), and again in the grid's fc
+    shapes (``_grid_shaped_heads``: each quantity's reorder gap), and that
+    state."""
+    import torch
+
+    refs = {}
+    for name in dict(PAR_D):
+        case = _grid_case(name, seed, dev)
+        model = case[2]
+        s0 = {k: v.clone() for k, v in model.state_dict().items()}
+        m1, sel1, g1, u1, _, _, rec1 = _grid_step(case, seed, sel)
+        gaps = {"loss": [], "grad": [], "upd": []}
+        for shaped in (False, True):
+            model.load_state_dict(s0)
+            with (_grid_shaped_heads() if shaped
+                  else contextlib.nullcontext()):
+                m2, _, g2, u2, _, _, _ = _grid_step(case, seed, sel)
+            gaps["loss"].append(max(abs(m2[k] - v) / max(abs(v), 1e-30)
+                                    for k, v in m1.items()))
+            gaps["grad"].append({n: _rel(g2[n], g) for n, g in g1.items()})
+            gaps["upd"].append({n: _rel(u2[n], u) for n, u in u1.items()
+                                if u.abs().max() > 0})
+            del g2, u2
+        refs[name] = {
+            "metrics": m1, "sel": sel1, "grads": g1, "upd": u1, "rec": rec1,
+            "state": {k: v.cpu() for k, v in s0.items()},
+            "gap_loss": gaps["loss"][0], "reorder_loss": gaps["loss"][1],
+            "gap_grad": gaps["grad"][0], "reorder_grad": gaps["grad"][1],
+            "gap_upd": gaps["upd"][0], "reorder_upd": gaps["upd"][1]}
+        del case, model
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _grid_runs(rank, seed, dev, sel, refs):
+    """(d), one rank of a ``data 1 x model 2`` grid: each of PAR_D from
+    its reference's state, cut to this rank's shards (``--tp 2``, and
+    ``--sp``'s row slabs) by ``mesh.parallelize``; its selections, losses,
+    gathered gradients and updates against the single process's; the
+    replicated parameters against the other rank's; then each RoIAlignAvg
+    call (forward, and backward where a gradient reached it) and each
+    proposal NMS of a step on this rank held to its plain version."""
+    import torch
+    from tllod_torch.parallel import dist, mesh
+
+    dist.make_grid(2)
+    out = {}
+    for name, sp in PAR_D:
+        ref = refs[name]
+        case = _grid_case(name, seed, dev)
+        spec, _, model, extra, src, tgt = case
+        model.load_state_dict({k: v.to(dev) for k, v in ref["state"].items()})
+        mesh.parallelize(model, sp=sp)
+        split_bytes = mesh.stats["split_bytes"]
+        m, sels, g, u, secs, launches, dec = _grid_step(case, seed, sel,
+                                                        ref["rec"])
+        rows = mesh.stats["first_rows"] if sp else None
+        sel_ok = len(sels) == len(ref["sel"]) and all(
+            torch.equal(a, b) for a, b in zip(sels, ref["sel"]))
+        loss_rel = max(abs(m[k] - v) / max(abs(v), 1e-30)
+                       for k, v in ref["metrics"].items())
+        over = []
+        worst = {}
+        for what, got, want, gaps, reorder in (
+                ("grad", g, ref["grads"], ref["gap_grad"],
+                 ref["reorder_grad"]),
+                ("update", u, ref["upd"], ref["gap_upd"],
+                 ref["reorder_upd"])):
+            errs = {n: _rel(got[n], want[n]) for n in gaps}
+            lim = {n: max(2 * gaps[n], 2 * reorder[n], PAR_TENSOR_FLOOR)
+                   for n in gaps}
+            over += [f"{what} {n}" for n in gaps if not errs[n] <= lim[n]]
+            n_w = max(errs, key=lambda n: errs[n] / lim[n])
+            worst[what] = (n_w, errs[n_w], lim[n_w], gaps[n_w], reorder[n_w])
+        same = True
+        for p in model.parameters():
+            if getattr(p, mesh.SPLIT, False):
+                continue
+            hi = p.detach().clone()
+            dist.all_reduce_(hi, "max", group="model")
+            same &= bool(torch.equal(hi, p.detach()))
+        calls, nms_calls, _ = _capture_train(spec, model, extra, src, tgt)
+        err_f = err_b = 0.0
+        for site, rec in zip(spec.roi_sites, calls):
+            label = f"grid {name} rank {rank} {site}"
+            err_f = max(err_f, _forward_check(label, rec["feat"],
+                                              rec["rois"], rec["kw"])[1])
+            if "grad" in rec:
+                err_b = max(err_b, _backward_check(
+                    label, rec["feat"], rec["rois"], rec["grad"],
+                    rec["kw"], rec["feat"].dtype)[0])
+        for site, (boxes, scores, kw) in zip(spec.nms_sites, nms_calls):
+            _nms_check(f"grid {name} rank {rank} {site}", boxes, scores, kw)
+        out[f"{name} --tp 2{' --sp' if sp else ''}"] = {
+            "seconds": secs, "launches": launches, "split_bytes":
+            split_bytes, "first_rows": rows, "selections": len(sels),
+            "selections_equal": sel_ok, "loss_rel": loss_rel,
+            "loss_rel_eager_eager": ref["gap_loss"],
+            "loss_rel_reorder": ref["reorder_loss"], "over": over,
+            "worst": worst, "grads": len(ref["gap_grad"]),
+            "replicated_equal": same, "roi_align_calls": len(calls),
+            "roi_align_fwd_err": err_f, "roi_align_bwd_err": err_b,
+            "nms_calls": len(nms_calls), "relu_flips": dec.flips,
+            "relu_worst": dec.worst, "clip_crossings": dec.crossings,
+            "clipped_rows": dec.clipped}
+        del case, model, extra, g, u, calls, nms_calls
+        torch.cuda.empty_cache()
+    return out
 
 
 def _two_rank_worker(rank, coord, seed, out_dir):
@@ -4503,6 +4914,7 @@ def _two_rank_worker(rank, coord, seed, out_dir):
         states[name] = {k: v.cpu() for k, v in s0.items()}
         del model, extra, opt, g1, g2
         torch.cuda.empty_cache()
+    grid_refs = _grid_refs(seed, dev, sel)
 
     dist.join(dev, coord=coord, world_size=2, rank=rank, backend="gloo")
     result = {}
@@ -4560,6 +4972,7 @@ def _two_rank_worker(rank, coord, seed, out_dir):
             "grad_set_equal": set(g) == set(g_ref)}
         del model, extra, opt, g
         torch.cuda.empty_cache()
+    result["grid"] = _grid_runs(rank, seed, dev, sel, grid_refs)
     dist.barrier()
     dist.leave()
     with open(os.path.join(out_dir, f"parallel_rank{rank}.json"), "w") as f:
@@ -4619,6 +5032,51 @@ def two_rank_phase(seed, out_dir):
                     and x["grad_l2"] <= lim_l2
                     and not x["grads_over"]):
                 bad.append(f"{name} rank {r}")
+    card = _card()
+    for label in ranks[0]["grid"]:
+        for r, res in enumerate(ranks):
+            x = res["grid"][label]
+            lim_l = max(2 * x["loss_rel_eager_eager"],
+                        2 * x["loss_rel_reorder"], PAR_FLOOR)
+            rows = (f"its first conv saw {x['first_rows'][0]} rows of "
+                    f"{x['first_rows'][1]}" if x["first_rows"]
+                    else "whole images")
+            (gn, ge, gl, gg, gr), (un, ue, ul, ug, ur) = (
+                x["worst"]["grad"], x["worst"]["update"])
+            log(f"[parallel] [grid] {label}, data 1 x model 2, rank {r} "
+                f"({card}; a correctness run, gloo through the host, "
+                f"{x['seconds']:.2f} s for the step): holds "
+                f"{x['split_bytes']} bytes of split parameters, {rows}; "
+                f"{x['selections']} selections equal "
+                f"{x['selections_equal']}; losses rel. {x['loss_rel']:.3g} "
+                f"(limit {lim_l:.3g}; eager {x['loss_rel_eager_eager']:.3g}, "
+                f"reorder {x['loss_rel_reorder']:.3g}); {x['grads']} "
+                f"gradients and updates "
+                f"gathered whole, each within twice the larger of its own "
+                f"eager and reorder gaps (floor {PAR_TENSOR_FLOOR:g}): "
+                f"nearest its limit gradient {gn} rel. {ge:.3g} (limit "
+                f"{gl:.3g}; eager {gg:.3g}, reorder {gr:.3g}), update {un} "
+                f"rel. {ue:.3g} (limit {ul:.3g}; eager {ug:.3g}, reorder "
+                f"{ur:.3g}), over {x['over'] or 'none'}; "
+                f"decisions apart from the reference's, each taken as the "
+                f"reference took it: ReLUs {x['relu_flips'] or 'none'}, "
+                f"ins_da rows across a side of the BCE clip "
+                f"{x['clip_crossings']} ({x['clipped_rows']} rows at or "
+                f"past it in the reference), the worst {x['relu_worst']:.3g}"
+                f" of the steps' largest difference elsewhere in its "
+                f"layer (limit 1); "
+                f"replicated parameters equal on both ranks "
+                f"{x['replicated_equal']}; {x['roi_align_calls']} "
+                f"RoIAlignAvg calls (forward max err "
+                f"{x['roi_align_fwd_err']:.3g}, backward "
+                f"{x['roi_align_bwd_err']:.3g}) and {x['nms_calls']} NMS "
+                f"held to their plain versions; launches {x['launches']}")
+            if not (x["selections_equal"] and not x["over"]
+                    and x["loss_rel"] <= lim_l and x["replicated_equal"]
+                    and x["relu_worst"] <= 1.0
+                    and x["launches"].get("roi_align_avg")
+                    and x["launches"].get("nms")):
+                bad.append(f"grid {label} rank {r}")
     log(f"[parallel] [2 ranks] {secs:.1f} s for both processes, start to "
         f"join")
     if bad:

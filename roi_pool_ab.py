@@ -3,7 +3,8 @@
 step, of two checkouts of this repository, in turns on one NVIDIA GPU.
 
     python3 roi_pool_ab.py OLD_CHECKOUT [NEW_CHECKOUT]
-                           [--op pool|crop|align|step] [--sites DIR]
+                           [--op pool|crop|align|align-rows|step]
+                           [--sites DIR]
                            [--seed 0]
 
 ``NEW_CHECKOUT`` defaults to the checkout that holds this script. Each
@@ -66,6 +67,16 @@ row and column and outside it, and with the R - 1 windows that straddle two
 RoIs. ``lib_fwd_ms`` is its forward (CUDA graph), ``lib_bwd_ms`` autograd's
 map gradient through it (CUDA events around 10 calls, host gaps included),
 ``lib_max_abs_diff`` its largest distance from the plain version.
+
+``--op align-rows``: the same checks and times (``--op align``'s keys),
+yardstick included, at the other main-path shapes of ``PERF.md``'s
+RoIAlignAvg rows (``ALIGN_ROWS``): eval batch 4, ATF's 2000 RoIs, the
+ResNet-101 eval and US-DAF train maps, the ``--bf16`` train sites, MAD's
+and IDF's 256, the B = 2 train maps and the COCO eval map, each with RoIs
+drawn as ``--op pool``'s eval proposals on its image, the same count on
+every image of a batch, image by image. On a map of B images the
+yardstick's grid is (B, R/B (P+1), P+1, 2), each image's RoIs sampled on
+its own map.
 
 ``--op step``: PA-ATF's ``--bf16`` train step as ``chip_smoke.py``'s phase
 5e takes it (its model, images and SGD, seed 0), with each checkout's own
@@ -245,19 +256,20 @@ def _chip_smoke():
 
 def _align_library(f, rois, kw):
     """``F.grid_sample`` at every RoI's (P+1)^2 sample points, stacked as
-    one (1, R(P+1), P+1, 2) grid on the (1, C, H, W) view of the map, then
-    ``F.avg_pool2d(2, stride=1)``: RoIAlignAvg's yardstick (the module
-    docstring). Returns (a call of its forward, a call of autograd's map
-    gradient through it, its (R, P, P, C) result)."""
+    one (B, R/B (P+1), P+1, 2) grid on the (B, C, H, W) view of the map
+    (the RoIs image by image, R/B each), then ``F.avg_pool2d(2,
+    stride=1)``: RoIAlignAvg's yardstick (the module docstring). Returns (a
+    call of its forward, a call of autograd's map gradient through it, its
+    (R, P, P, C) result)."""
     import torch
     import torch.nn.functional as F
     from tllod_torch.ops.roi_align import _grid_coords
 
-    _, h, w, c = f.shape
+    b, h, w, c = f.shape
     r, p = rois.shape[0], kw["out_size"] + 1
     ys, xs = _grid_coords(rois[:, 1:5], p, kw["spatial_scale"])
     grid = torch.stack([xs / (w - 1) * 2 - 1, ys / (h - 1) * 2 - 1],
-                       -1).reshape(1, r * p, p, 2).to(f.dtype)
+                       -1).reshape(b, r // b * p, p, 2).to(f.dtype)
 
     def run(x):
         out = F.grid_sample(x.permute(0, 3, 1, 2), grid, mode="bilinear",
@@ -275,10 +287,10 @@ def _align_library(f, rois, kw):
     def bwd():
         return torch.autograd.grad(out, leaf, ones, retain_graph=True)
 
-    # RoI k's P x P windows: rows k (P+1) .. k (P+1) + P - 1
-    o = fwd()[0]
-    got = torch.cat([o, o[:, :1]], 1).reshape(c, r, p, p - 1)[
-        :, :, :-1].permute(1, 2, 3, 0)
+    # RoI k's P x P windows: rows k (P+1) .. k (P+1) + P - 1 of its image
+    o = fwd()
+    got = torch.cat([o, o[:, :, :1]], 2).reshape(b, c, r // b, p, p - 1)[
+        :, :, :, :-1].permute(0, 2, 3, 4, 1).reshape(r, p - 1, p - 1, c)
     return fwd, bwd, got
 
 
@@ -325,8 +337,69 @@ def align_worker(checkout, seed):
     train = eval_rois(rng, dev)
     sites += [(f"DAF train 1x37x75x512, {n} rois", train[:n], torch.float32)
               for n in (256, 300)]
+    return _align_records(cs, ra, [(label, feat, r, dtype, grad)
+                                   for label, r, dtype in sites], kw)
+
+
+# PERF.md's RoIAlignAvg rows without a yardstick: (label, map (B, H, W, C),
+# RoIs a image, dtypes); images 600x1200, or 600x800 for the ResNet-101
+# train and the COCO maps
+ALIGN_ROWS = (
+    ("eval bs 4", (4, 37, 75, 512), 300, ("float32", "bfloat16")),
+    ("ATF train", (1, 37, 75, 512), 2000, ("float32", "bfloat16")),
+    ("res101 eval", (1, 38, 75, 1024), 300, ("float32",)),
+    ("US-DAF train", (1, 38, 50, 1024), 128, ("float32", "bfloat16")),
+    ("US-DAF train", (1, 38, 50, 1024), 300, ("float32", "bfloat16")),
+    ("train, MAD, IDF", (1, 37, 75, 512), 256, ("float32", "bfloat16")),
+    ("train target", (1, 37, 75, 512), 300, ("bfloat16",)),
+    ("B = 2 train", (2, 37, 75, 512), 256, ("float32",)),
+    ("B = 2 train", (2, 37, 75, 512), 300, ("float32",)),
+    ("COCO eval", (1, 37, 50, 512), 300, ("float32",)),
+)
+
+
+def align_rows_worker(checkout, seed):
+    """``--op align-rows``: RoIAlignAvg at each ``ALIGN_ROWS`` shape,
+    checked and timed beside its library yardstick."""
+    import numpy as np
+    import torch
+
+    cs = _chip_smoke()
+    sys.path.insert(0, os.path.abspath(checkout))
+    import tllod_torch.ops.roi_align as ra
+    _own(ra, checkout)
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = {"out_size": P, "spatial_scale": 1.0 / 16}
+    sites = []
+    for label, (b, h, w, c), n, dtypes in ALIGN_ROWS:
+        im_w = w * 16
+        rois = []
+        for i in range(b):
+            bw = rng.uniform(32, im_w / 2, n)
+            bh = rng.uniform(32, h * 16 * 2 / 3, n)
+            x1, y1 = rng.uniform(0, im_w - bw), rng.uniform(0, h * 16 - bh)
+            rois.append(np.stack([np.full(n, i), x1, y1, x1 + bw - 1,
+                                  y1 + bh - 1], 1))
+        rois = torch.tensor(np.concatenate(rois), dtype=torch.float32,
+                            device=dev)
+        feat = torch.relu(torch.randn((b, h, w, c), generator=gen,
+                                      device=dev))
+        grad = torch.randn((b * n, P, P, c), generator=gen, device=dev)
+        sites += [(f"{label} {b}x{h}x{w}x{c}, {b * n} rois", feat, rois,
+                   getattr(torch, dt), grad) for dt in dtypes]
+    return _align_records(cs, ra, sites, kw)
+
+
+def _align_records(cs, ra, sites, kw):
+    """Each (label, map, RoIs, dtype, output gradient) site: the kernels
+    against the plain version, then their times and the yardstick's."""
+    import torch
+
+    dev = torch.device("cuda")
     recs = []
-    for label, rois, dtype in sites:
+    for label, feat, rois, dtype, grad in sites:
         f = feat.to(dtype)
         rcpp = grad[:rois.shape[0]].to(dtype).permute(
             0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
@@ -470,7 +543,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("old")
     ap.add_argument("new", nargs="?", default=HERE)
-    ap.add_argument("--op", choices=("pool", "crop", "align", "step"),
+    ap.add_argument("--op", choices=("pool", "crop", "align", "align-rows",
+                                     "step"),
                     default="pool")
     ap.add_argument("--unchecked", action="store_true",
                     help="--op crop: time without checking")
@@ -484,6 +558,8 @@ def main() -> int:
         sites = {"crop": lambda: crop_worker(args.worker, args.seed,
                                              not args.unchecked, args.sites),
                  "align": lambda: align_worker(args.worker, args.seed),
+                 "align-rows": lambda: align_rows_worker(args.worker,
+                                                         args.seed),
                  "step": lambda: step_worker(args.worker, args.seed),
                  "pool": lambda: worker(args.worker, args.seed)}[args.op]()
         print(json.dumps({"checkout": args.worker, "sites": sites}))

@@ -252,14 +252,14 @@ def _worker(case, out_dir):
     dist.leave()
 
 
-def launch_ranks(case, tmp_path, world=WORLD):
-    """Run this file's worker on ``world`` gloo ranks; their results in
-    rank order."""
+def launch_ranks(case, tmp_path, world=WORLD, script=__file__):
+    """Run this file's worker (or ``script``'s) on ``world`` gloo ranks;
+    their results in rank order."""
     env = dict(os.environ, TLLOD_DIST_COORD=f"file://{tmp_path}/store",
                TLLOD_DIST_NPROCS=str(world), OMP_NUM_THREADS="1",
                PYTHONPATH=REPO)
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), case, str(tmp_path)],
+        [sys.executable, os.path.abspath(script), case, str(tmp_path)],
         env=dict(env, TLLOD_DIST_PID=str(r)), cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(world)]

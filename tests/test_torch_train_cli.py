@@ -186,14 +186,36 @@ def test_pt_maf_train_needs_a_teacher(synth_voc, tmp_path, monkeypatch):
     assert ckpt["meta"]["teacher_ckpt"] == first
 
 
-def test_unported_train_flags_raise(synth_voc, tmp_path, monkeypatch):
-    """Tensor and spatial parallelism are not ported: ``--tp 2`` and
-    ``--sp`` raise before anything is built (``--mGPUs`` is data
-    parallelism, ``tests/test_torch_parallel.py``)."""
-    monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
-    for flags in (["--tp", "2"], ["--sp"], ["--mGPUs", "--tp", "2"]):
-        with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("flags,world,message", [
+    (["--sp"], 1, "--sp shards images over the 'model' mesh axis; it "
+                  "requires --tp >= 2 to define that axis"),
+    (["--tp", "2"], 1, "mesh 1x2 needs 2 devices, have 1"),
+    (["--tp", "3"], 2, "--tp 3 does not divide the 2 devices in use"),
+    (["--tp", "2", "--bs", "3"], 4,
+     "--mGPUs: global batch size 3 is not divisible by the 2-way data "
+     "axis"),
+], ids=["sp_alone", "tp_beyond_devices", "tp3_on_2_ranks", "bs_over_data"])
+def test_tp_sp_flags_raise_as_jax(flags, world, message, synth_voc, tmp_path,
+                                  monkeypatch):
+    """JAX's ``setup_parallelism`` errors (``methods/common.py:438-447``,
+    ``make_mesh_2d``, ``check_batch_divisible``), raised before a model or
+    a loader is built: ``--sp`` without a model axis; ``--tp 2`` with one
+    device (the CPU without the ``TLLOD_DIST_*`` launch); ``--tp 3`` on a
+    launch of 2 ranks; ``--bs 3`` on ``data 2 x model 2``, 4 ranks."""
+    if world == 1:
+        monkeypatch.setenv("TLLOD_DATA_DIR", synth_voc)
+        for k in ("TLLOD_DIST_COORD", "TLLOD_DIST_NPROCS", "TLLOD_DIST_PID"):
+            monkeypatch.delenv(k, raising=False)
+        with pytest.raises(ValueError) as err:
             _train(str(tmp_path), *flags)
+        assert str(err.value) == message
+        return
+    from test_torch_parallel import _cli
+    rcs, logs = _cli(tmp_path / "out", synth_voc, *flags, world=world,
+                     store=tmp_path / "store")
+    assert all(rc != 0 for rc in rcs), logs
+    for log in logs:
+        assert f"ValueError: {message}" in log, log
 
 
 @pytest.mark.parametrize("flags,state", [

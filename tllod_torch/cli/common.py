@@ -28,8 +28,7 @@ REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
 def build_train_parser(description: str) -> argparse.ArgumentParser:
     """The reference train scripts' flags (``methods/DAF/DAF_train.py:
     44-132``, as ``methods/common.py:27``), plus ``--device`` and
-    ``--cfg``. Flags of features not ported yet (``--tp``, ``--sp``) are
-    accepted and raise in :func:`check_train_args`."""
+    ``--cfg``."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--dataset", default="cityscape", type=str)
     p.add_argument("--net", default="vgg16", type=str,
@@ -61,10 +60,17 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
                         "step is the single-process --bs step. Across "
                         "hosts, set TLLOD_DIST_COORD/NPROCS/PID instead")
     p.add_argument("--tp", default=1, type=int,
-                   help="tensor parallelism: not ported yet (raises if > 1)")
+                   help="tensor parallelism: the ranks form a (data, model) "
+                        "grid of model = TP, each model group splitting "
+                        "fc6/fc7 and ResNet's layer4 channels; TP workers "
+                        "(x GPUs / TP data ranks with --mGPUs), or the "
+                        "TLLOD_DIST_* group; the step is the single-process "
+                        "--bs step")
     p.add_argument("--bs", dest="batch_size", default=1, type=int)
     p.add_argument("--sp", action="store_true",
-                   help="spatial partitioning: not ported yet (raises)")
+                   help="spatial partitioning (needs --tp >= 2): each rank "
+                        "of a model group runs the backbone on its rows of "
+                        "the image, exchanging the rows each window needs")
     p.add_argument("--cag", dest="class_agnostic", action="store_true")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute in DAF, MAF, ATF, PA-ATF and "
@@ -101,10 +107,10 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
 
 
 def check_train_args(args) -> None:
-    """Raise for flags whose features are not ported yet (``--tp > 1``,
-    ``--sp``), then join the process group the run asks for
-    (:func:`setup_parallel`) and check that ``--bs`` splits over it."""
-    dist.check_model_parallel(args.tp, args.sp)
+    """Join the process group and the rank grid the run asks for
+    (:func:`setup_parallel`; JAX's ``setup_parallelism`` checks of
+    ``--tp`` and ``--sp`` raising first), then check that ``--bs`` splits
+    over the data axis."""
     setup_parallel(args, args.m_chips)
     dist.check_batch_divisible(args.batch_size, dist.world())
 
@@ -117,16 +123,28 @@ def setup_parallel(args, wanted: bool) -> None:
     - with ``TLLOD_DIST_COORD``, ``TLLOD_DIST_NPROCS`` and
       ``TLLOD_DIST_PID`` set, the group they name (every rank is started
       by the caller, on one host or several);
-    - else, when ``wanted`` (``--mGPUs``, ``--shard_eval``): on a host with
-      several GPUs, one worker per GPU, each this CLI module run again
+    - else, when ``wanted`` (``--mGPUs``, ``--shard_eval``) or under
+      ``--tp N``: on a host with several GPUs, one worker per GPU (every
+      GPU with ``--mGPUs``, else ``N``), each this CLI module run again
       (``torch.multiprocessing``, spawn), after which this process exits;
-      with one GPU, or on the CPU, a group of one rank in this process.
+      with one GPU, or on the CPU, a group of one rank in this process. A
+      grid that needs more devices than the host has raises, as JAX's
+      ``make_mesh_2d`` does (NCCL refuses two ranks on one GPU).
 
-    NCCL on the card, gloo with ``--device cpu``."""
+    Then the ranks form the ``(data, model)`` grid of ``--tp``
+    (:func:`tllod_torch.parallel.dist.make_grid`). NCCL on the card, gloo
+    with ``--device cpu``."""
+    tp = max(1, getattr(args, "tp", 1))
+    dist.check_grid(tp, getattr(args, "sp", False))
     dev = resolve_device(args.device)
     joined = dist.join_from_env(dev)
-    if joined is None and wanted:
-        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if joined is None and (wanted or tp > 1):
+        have = torch.cuda.device_count() if dev.type == "cuda" else 1
+        n = have if wanted else tp
+        dist.check_grid(tp, False, n)
+        if n > have:
+            raise ValueError(f"mesh {n // tp}x{tp} needs {n} devices, have "
+                             f"{have}")
         if n > 1:
             from tllod_torch.ops import _kernels
             _kernels.build_all()        # once, before the workers start
@@ -136,6 +154,9 @@ def setup_parallel(args, wanted: bool) -> None:
                            world_size=1, rank=0)
     if joined is not None:
         args.device = str(joined)
+        if tp > 1:
+            dist.make_grid(tp)
+            print(f"mesh: data {dist.world()} x model {tp}", flush=True)
 
 
 class MetricLogger:
@@ -143,8 +164,8 @@ class MetricLogger:
     optionally mirrored to a JSONL file. The step's metrics stay on the
     device: each step adds them into a running-sum vector there, and the
     one copy to the host happens when the interval prints. Under a process
-    group the metrics are the global batch's on every rank, and rank 0
-    alone prints them."""
+    group the metrics are the global batch's on every rank, and global
+    rank 0 alone prints them."""
 
     def __init__(self, interval: int, jsonl_path: Optional[str] = None):
         self.interval = max(1, interval)
@@ -152,7 +173,7 @@ class MetricLogger:
         self.keys = None
         self.acc: Optional[torch.Tensor] = None
         self.n = 0
-        self.quiet = dist.rank() != 0
+        self.quiet = dist.global_rank() != 0
         self.jsonl = (open(jsonl_path, "a") if jsonl_path and not self.quiet
                       else None)
 

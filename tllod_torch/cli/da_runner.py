@@ -30,8 +30,12 @@ world`` images (:func:`tllod_torch.data.loader.train_loader`), its padded
 image shape agreed with the other ranks'
 (:func:`tllod_torch.parallel.dist.sync_image_shapes`), and each step is
 the single-process step of the global batch (:mod:`tllod_torch.train`).
-Rank 0 alone logs and writes checkpoints; every rank resumes from the same
-file.
+Under ``--tp`` (and ``--sp``) the ranks form a ``(data, model)`` grid:
+:func:`train_loop` cuts the model to this rank's shards
+(:func:`tllod_torch.parallel.mesh.parallelize`) before the optimizer is
+built, the ranks of a model group stream the same images, and the
+checkpoint holds full tensors. Global rank 0 alone logs and writes
+checkpoints; every rank resumes from the same file.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from tllod_torch.cli.faster_rcnn_test import evaluate_split
 from tllod_torch.data.loader import DetectionLoader, train_loader
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.parallel import dist
+from tllod_torch.parallel.mesh import parallelize
 from tllod_torch.train import TrainStepMulti, train_step
 from tllod_torch.utils.checkpoint import resume_train_state, save_checkpoint
 from tllod_torch.utils.optim import build_optimizer
@@ -133,6 +138,7 @@ def train_loop(method_name: str, model, loss_fn: Callable,
     loader's K batches padded to one shape (:func:`stack_batches`), and
     the rest one by one. Returns the last step reached."""
     steps_per_epoch = min(len(loader) for loader in loaders)
+    parallelize(model, sp=getattr(args, "sp", False))
     schedule, opt = build_optimizer(args, cfg, model, steps_per_epoch)
 
     output_dir = os.path.join(args.save_dir, args.net, args.dataset)
@@ -205,16 +211,16 @@ def train_loop(method_name: str, model, loss_fn: Callable,
                 finish(step, epoch, metrics)
             done = ((args.max_steps and step >= args.max_steps)
                     or epoch == args.max_epochs)
-            if (done or epoch % max(1, args.save_epoch_interval) == 0) \
-                    and dist.rank() == 0:
+            if done or epoch % max(1, args.save_epoch_interval) == 0:
                 path = os.path.join(output_dir, f"{method_name}_"
                                     f"{args.session}_{epoch}_{step}.pth")
-                save_checkpoint(path, model=model, optimizer=opt, step=step,
-                                epoch=epoch, session=args.session,
-                                meta={"pooling_mode": cfg.POOLING_MODE,
-                                      "class_agnostic": args.class_agnostic,
-                                      "net": args.net, **(meta or {})})
-                print(f"saved checkpoint for epoch {epoch}: {path}")
+                if save_checkpoint(
+                        path, model=model, optimizer=opt, step=step,
+                        epoch=epoch, session=args.session,
+                        meta={"pooling_mode": cfg.POOLING_MODE,
+                              "class_agnostic": args.class_agnostic,
+                              "net": args.net, **(meta or {})}):
+                    print(f"saved checkpoint for epoch {epoch}: {path}")
             if done:
                 break
     finally:

@@ -94,10 +94,10 @@ def record_writer(output_dir: str, session: int, steps_per_epoch: int,
     """``after_step`` that appends the step's losses to
     ``record_loss.txt`` and its ``dist*`` values to ``record_dist.txt``,
     every ``interval`` steps, in the JAX script's format; under a process
-    group, rank 0 alone (the metrics are the global batch's on every
+    group, global rank 0 alone (the metrics are the global batch's on every
     rank)."""
     def write(step, epoch, metrics):
-        if step % max(1, interval) or dist.rank() != 0:
+        if step % max(1, interval) or dist.global_rank() != 0:
             return
         head = (f"[session {session}][epoch {epoch:2d}]"
                 f"[iter {step:4d}/{steps_per_epoch:4d}] ")

@@ -44,6 +44,12 @@ package's test-only variant with one bottleneck a stage:
 Each Bottleneck's ``conv3`` starts at zero (``init_weights`` of the
 detector, as ``kernel_init=zeros`` at ``backbones.py:157-158``): with every
 BN frozen, a random-init ResNet-101 otherwise diverges.
+
+On a ``--tp`` rank grid (:func:`tllod_torch.parallel.mesh.parallelize`)
+``VGG16Head`` and the ``layer4_*`` bottlenecks hold their rank's shards and
+run split (``tp``); under ``--sp`` the feature extractors run on the
+rank's rows of the image (``spatial``), each window reading its
+neighbours' rows through the halo exchange.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tllod_torch.models.layers import Conv2d, Linear
+from tllod_torch.parallel import dist, mesh
 
 # torchvision VGG16 conv plan: (out_channels, convs per block)
 _VGG_BLOCKS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
@@ -80,6 +87,8 @@ class VGG16Features(nn.Module):
         self.out_channels = in_ch
         self.tap_channels = tuple(widths[2:])          # c3, c4, c5
 
+    spatial = False      # --sp: run on this rank's rows (mesh.parallelize)
+
     def forward(self, x: torch.Tensor, *, return_taps: bool = False,
                 stage_range: Tuple[int, int] = (0, 5)):
         """x: (B, 3, H, W), NCHW; returns (B, C, H/16, W/16), or with
@@ -88,6 +97,8 @@ class VGG16Features(nn.Module):
         ``[lo, hi)`` on ``x``, the output of block ``lo - 1``: the max-pool
         before each block but the first, the detach after block 2 only
         when block 2 runs, as the JAX module does."""
+        if self.spatial:
+            return _vgg_spatial(self, x, return_taps, stage_range)
         lo, hi = stage_range
         taps = []
         for bi, (_, n_convs) in enumerate(_VGG_BLOCKS):
@@ -105,12 +116,83 @@ class VGG16Features(nn.Module):
         return tuple(taps) if return_taps else x
 
 
-def dropout(x: torch.Tensor, p: float, rng) -> torch.Tensor:
+def _spatial_input(x: torch.Tensor, image: bool) -> None:
+    """JAX places an ``--sp`` image under ``P("data", "model")``, which
+    needs its height to split evenly over the model axis."""
+    n = dist.model_world()
+    if image and x.shape[2] % n:
+        b, c, h, w = x.shape
+        raise ValueError(
+            f"--sp: an image sharded on its height over the {n}-way model "
+            f"axis should have a height divisible by {n}, but it is equal "
+            f"to {h} (full shape: {(b, h, w, c)})")
+
+
+def _vgg_spatial(net: "VGG16Features", x, return_taps, stage_range):
+    """``VGG16Features.forward`` on this rank's rows (``--sp``): each conv
+    and pool on its slab with the rows its window reaches from the
+    neighbours (:class:`tllod_torch.parallel.mesh.SlabPlan`), the map (or
+    each tap) gathered by height at the end."""
+    lo, hi = stage_range
+    _spatial_input(x, lo == 0)
+    plan = mesh.SlabPlan(x.shape[2], 16 >> max(lo - 1, 0))
+    level, first, taps = (1, x.shape[2]), True, []
+    for bi, (_, n_convs) in enumerate(_VGG_BLOCKS):
+        if not lo <= bi < hi:
+            continue
+        if bi > 0:
+            x, level = plan.layer(lambda t: F.max_pool2d(t, 2, 2), x, level,
+                                  2, 2, 0, float("-inf"), first)
+            first = False
+        for ci in range(n_convs):
+            conv = getattr(net, f"conv{bi + 1}_{ci + 1}")
+            x, level = plan.layer(lambda t: conv(t, padding=(0, 1)), x,
+                                  level, 3, 1, 1, 0.0, first)
+            first = False
+            x = F.relu(x, inplace=True)
+        if bi + 1 == net.frozen_blocks:
+            x = x.detach()
+        if bi >= 2:
+            taps.append((x, level))
+    if return_taps:
+        return tuple(plan.gather(t, lv) for t, lv in taps)
+    return plan.gather(x, level)
+
+
+def dropout(x: torch.Tensor, p: float, rng, cols=None) -> torch.Tensor:
     """Inverted dropout with its keep mask drawn from ``rng`` (a
     :class:`tllod_torch.train.StepRandom`), written as flax's
-    ``where(keep, x / (1 - p), 0)``."""
-    keep = rng.uniform(x.shape) < 1.0 - p
+    ``where(keep, x / (1 - p), 0)``. ``cols=(lo, hi, width)``: ``x`` is
+    columns ``[lo, hi)`` of a ``width``-wide tensor (an fc6 shard under
+    ``--tp``), whose mask is those columns of the whole tensor's."""
+    if cols is None:
+        keep = rng.uniform(x.shape) < 1.0 - p
+    else:
+        lo, hi, width = cols
+        keep = rng.uniform(x.shape[:-1] + (width,))[..., lo:hi] < 1.0 - p
     return torch.where(keep, x * (1.0 / (1.0 - p)), 0.0)
+
+
+def _row_parallel(layer, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` (a :class:`Linear` or :class:`Conv2d`), split on its input
+    features, on this rank's share ``x`` of them: the partial products
+    summed over the model group, then the bias. Below float32 the partial
+    products are float32 (the compute type's operands, multiplied
+    exactly), summed, and rounded once, as one process's product rounds."""
+    dt = layer.compute_dtype
+    w = layer.weight.to(dt)
+    x = x.to(dt)
+    if dt != torch.float32:
+        x, w = x.float(), w.float()
+    if isinstance(layer, Conv2d):
+        y = F.conv2d(x, w, None, layer.stride, layer.padding)
+    else:
+        y = F.linear(x, w)
+    y = mesh.reduce_from_model(y).to(dt)
+    if layer.bias is None:
+        return y
+    b = layer.bias.to(dt)
+    return y + (b[:, None, None] if y.dim() == 4 else b)
 
 
 class VGG16Head(nn.Module):
@@ -122,14 +204,29 @@ class VGG16Head(nn.Module):
         self.fc6 = Linear(in_features, dim, device=device)
         self.fc7 = Linear(dim, dim, device=device)
 
+    tp = 1      # --tp: fc6 split on its outputs, fc7 on its inputs
+
     def forward(self, pooled: torch.Tensor, *, deterministic: bool = True,
                 rng=None) -> torch.Tensor:
+        """Under ``--tp`` (``mesh.parallelize``) this rank holds fc6's
+        output columns ``[lo, hi)`` and fc7's matching input rows: the
+        activations stay split through the ReLU and dropout (the mask the
+        columns of the whole draw), fc7's partial products are summed over
+        the model group and its bias added once, with no gather."""
         r = pooled.shape[0]
         x = pooled.permute(0, 3, 1, 2).reshape(r, -1)    # (R, C*P*P)
+        cols = None
+        if self.tp > 1:
+            x = mesh.copy_to_model(x)
         x = F.relu(self.fc6(x))
+        if self.tp > 1:
+            n = x.shape[1]
+            lo = dist.model_rank() * n
+            cols = (lo, lo + n, n * self.tp)
         if not deterministic:
-            x = dropout(x, 0.5, rng)
-        x = F.relu(self.fc7(x))
+            x = dropout(x, 0.5, rng, cols)
+        x = F.relu(_row_parallel(self.fc7, x) if self.tp > 1
+                   else self.fc7(x))
         if not deterministic:
             x = dropout(x, 0.5, rng)
         return x
@@ -179,13 +276,47 @@ class Bottleneck(nn.Module):
             self.downsample_bn = FrozenBN(planes * 4, device=device)
         self.downsample = downsample
 
+    tp = 1      # --tp in layer4: split on the channels (mesh.parallelize)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Under ``--tp`` this rank holds ``planes / tp`` of conv1's and
+        4 ``planes / tp`` of conv3's and downsample_conv's output channels
+        (their FrozenBNs to match) and conv2's matching input channels:
+        conv2's partial products are summed over the model group before
+        bn2, the residual add stays split (an identity residual takes this
+        rank's channels), and the block's output is gathered whole."""
+        if self.tp > 1:
+            x = mesh.copy_to_model(x)
         y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = (self.downsample_bn(self.downsample_conv(x))
-                    if self.downsample else x)
-        return F.relu(y + residual)
+        y = _row_parallel(self.conv2, y) if self.tp > 1 else self.conv2(y)
+        y = F.relu(self.bn2(y))
+        y = self.bn3(self.conv3(mesh.copy_to_model(y) if self.tp > 1
+                                else y))
+        if self.downsample:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        elif self.tp > 1:
+            n = y.shape[1]
+            residual = x[:, dist.model_rank() * n:(dist.model_rank() + 1)
+                         * n]
+        else:
+            residual = x
+        out = F.relu(y + residual)
+        return mesh.gather_from_model(out, 1) if self.tp > 1 else out
+
+    def forward_rows(self, x: torch.Tensor, plan, level):
+        """:meth:`forward` on a slab of rows at ``level`` (``--sp``):
+        the 3x3 conv2 and the strided downsample through ``plan``."""
+        y = F.relu(self.bn1(self.conv1(x)))
+        s = self.conv2.stride[0]
+        y, out_level = plan.layer(lambda t: self.conv2(t, padding=(0, 1)),
+                                  y, level, 3, s, 1, 0.0)
+        y = self.bn3(self.conv3(F.relu(self.bn2(y))))
+        residual = x
+        if self.downsample:
+            residual, _ = plan.layer(self.downsample_conv, x, level, 1, s,
+                                     0, 0.0)
+            residual = self.downsample_bn(residual)
+        return F.relu(y + residual), out_level
 
 
 # bottlenecks per stage (reference resnet.py:186-218); 14 is the JAX
@@ -228,9 +359,13 @@ class ResNetFeatures(nn.Module):
         self.stages = RESNET_STAGES[depth][:3]
         self.tap_channels = (256, 512, 1024)          # layer1..layer3
 
+    spatial = False      # --sp: run on this rank's rows (mesh.parallelize)
+
     def forward(self, x: torch.Tensor, *, return_taps: bool = False):
         """x: (B, 3, H, W); returns the layer3 map, or with ``return_taps``
         the layer1, layer2 and layer3 maps (strides 4, 8, 16)."""
+        if self.spatial:
+            return self._forward_rows(x, return_taps)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1).detach()       # the stem is frozen
         taps = []
@@ -241,6 +376,32 @@ class ResNetFeatures(nn.Module):
                 x = x.detach()
             taps.append(x)
         return tuple(taps) if return_taps else x
+
+
+    def _forward_rows(self, x: torch.Tensor, return_taps: bool):
+        """:meth:`forward` on this rank's rows of the image (``--sp``): the
+        7x7 stride-2 stem reads 3 rows above its slab and 2 below, the
+        3x3 stride-2 max pool one above, filled with -inf past the image;
+        the map (or each tap) is gathered by height at the end."""
+        _spatial_input(x, True)
+        plan = mesh.SlabPlan(x.shape[2], 16)
+        x, level = plan.layer(lambda t: self.conv1(t, padding=(0, 3)), x,
+                              (1, x.shape[2]), 7, 2, 3, 0.0, first=True)
+        x = F.relu(self.bn1(x))
+        x, level = plan.layer(lambda t: F.max_pool2d(t, 3, 2, (0, 1)), x,
+                              level, 3, 2, 1, float("-inf"))
+        x = x.detach()                               # the stem is frozen
+        taps = []
+        for s, blocks in enumerate(self.stages):
+            for blk in range(blocks):
+                x, level = getattr(self, f"layer{s + 1}_{blk}").forward_rows(
+                    x, plan, level)
+            if s + 1 <= self.fixed_blocks:
+                x = x.detach()
+            taps.append((x, level))
+        if return_taps:
+            return tuple(plan.gather(t, lv) for t, lv in taps)
+        return plan.gather(x, level)
 
 
 class ResNetHead(nn.Module):

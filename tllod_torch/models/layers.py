@@ -27,14 +27,22 @@ from torch import nn
 
 
 class Conv2d(nn.Conv2d):
+    """``padding`` of a call, where given, takes the layer's place (a slab
+    of rows padded already on the height axis, :mod:`tllod_torch.parallel.
+    mesh`)."""
     compute_dtype = torch.float32
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding=None) -> torch.Tensor:
         dt = self.compute_dtype
+        pad = self.padding if padding is None else padding
+
+        def conv(x, w, b):
+            return F.conv2d(x, w, b, self.stride, pad, self.dilation,
+                            self.groups)
         if dt == torch.float32 or self.bias is None:
             bias = None if self.bias is None else self.bias.to(dt)
-            return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
-        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+            return conv(x.to(dt), self.weight.to(dt), bias)
+        y = conv(x.to(dt), self.weight.to(dt), None)
         return y + self.bias.to(dt)[:, None, None]
 
 

@@ -26,6 +26,19 @@ collective:
 With no group every helper is the plain single-process expression, bit for
 bit. A group of one rank runs every collective (``--mGPUs`` on one card).
 
+Under ``--tp N`` (:func:`make_grid`) the ``n`` ranks form JAX's 2-D
+``(data, model)`` mesh (``mesh.py:32-52``): ``data = n / N`` by
+``model = N``, global rank ``d · N + m``. The ranks of one data index
+``d`` (its model group) read the same images and draw the same random
+numbers; they split the big layers and, under ``--sp``, the backbone's
+rows between them (:mod:`tllod_torch.parallel.mesh`). So :func:`rank` and
+:func:`world`, and every helper that counts images or rows (:func:`gsum`,
+:func:`gmean`, :func:`global_sum`, :func:`global_max`,
+:func:`gather_rows`), mean the data axis; :func:`global_rank` and
+:func:`global_world` the whole group, :func:`model_rank` and
+:func:`model_world` the model axis. Without ``--tp`` the data axis is the
+whole group.
+
 The group is NCCL on the card and gloo on the CPU (:func:`join`), never
 switched quietly. gloo takes CUDA tensors only for some collectives, so
 under gloo a CUDA tensor is staged through the host for each one (the
@@ -52,7 +65,8 @@ ENV_PID = "TLLOD_DIST_PID"
 ENV_LOCAL = "TLLOD_DIST_LOCAL_RANK"  # the GPU index; default pid % GPUs
 
 JOIN_TIMEOUT_S = 600.0               # how long a rank waits in a collective
-_state: Dict[str, object] = {"device": None, "backend": None}
+_state: Dict[str, object] = {"device": None, "backend": None, "tp": 1,
+                             "groups": {}}
 # bytes that reduce_gradients has all-reduced, for measurement
 stats = {"gradient_bytes": 0}
 
@@ -61,12 +75,31 @@ def active() -> bool:
     return tdist.is_available() and tdist.is_initialized()
 
 
-def rank() -> int:
+def global_rank() -> int:
     return tdist.get_rank() if active() else 0
 
 
-def world() -> int:
+def global_world() -> int:
     return tdist.get_world_size() if active() else 1
+
+
+def model_world() -> int:
+    """Ranks a model group holds: ``--tp``'s N (1 without a grid)."""
+    return _state["tp"] if active() else 1
+
+
+def model_rank() -> int:
+    return global_rank() % model_world()
+
+
+def rank() -> int:
+    """This rank's index on the data axis."""
+    return global_rank() // model_world()
+
+
+def world() -> int:
+    """Ranks on the data axis: the images of a step split ``world`` ways."""
+    return global_world() // model_world()
 
 
 def backend() -> Optional[str]:
@@ -119,8 +152,8 @@ def join_from_env(dev) -> Optional[torch.device]:
         return device()
     dev = join(dev, coord=coord, world_size=int(os.environ[ENV_NPROCS]),
                rank=int(os.environ[ENV_PID]))
-    print(f"torch.distributed: rank {rank()}/{world()} on {dev} "
-          f"({_state['backend']})", flush=True)
+    print(f"torch.distributed: rank {global_rank()}/{global_world()} on "
+          f"{dev} ({_state['backend']})", flush=True)
     return dev
 
 
@@ -152,7 +185,26 @@ def spawn_cli(n: int) -> None:
 def leave() -> None:
     if active():
         tdist.destroy_process_group()
-    _state.update(device=None, backend=None)
+    _state.update(device=None, backend=None, tp=1, groups={})
+
+
+def make_grid(tp: int) -> None:
+    """Arrange the joined ranks as a ``(data, model)`` grid of ``model =
+    tp`` (``make_mesh_2d``): a model group per data index, a data group per
+    model index. Every rank calls it, with the same ``tp``."""
+    n = global_world()
+    check_grid(tp, False, n)
+    groups = {}
+    if tp > 1:
+        for d in range(n // tp):          # every rank makes every group
+            g = tdist.new_group(list(range(d * tp, (d + 1) * tp)))
+            if d == global_rank() // tp:
+                groups["model"] = g
+        for m in range(tp):
+            g = tdist.new_group(list(range(m, n, tp)))
+            if m == global_rank() % tp:
+                groups["data"] = g
+    _state.update(tp=tp, groups=groups)
 
 
 def check_batch_divisible(batch_size: int, n: int) -> None:
@@ -165,12 +217,16 @@ def check_batch_divisible(batch_size: int, n: int) -> None:
             f"(e.g. --bs {((batch_size // n) + 1) * n}).")
 
 
-def check_model_parallel(tp: int, sp: bool) -> None:
-    if tp > 1 or sp:
-        raise NotImplementedError(
-            "--tp and --sp (tensor and spatial parallelism, "
-            "tllod_tpu/parallel/mesh.py:32-135) are not ported yet; "
-            "--mGPUs is data parallelism over torch.distributed")
+def check_grid(tp: int, sp: bool, n: Optional[int] = None) -> None:
+    """JAX's checks of ``--tp`` and ``--sp`` (``methods/common.py:
+    438-447``): ``--sp`` needs a model axis, ``--tp`` must divide the ``n``
+    ranks in use."""
+    if sp and tp < 2:
+        raise ValueError("--sp shards images over the 'model' mesh axis; "
+                         "it requires --tp >= 2 to define that axis")
+    if n is not None and tp > 1 and n % tp != 0:
+        raise ValueError(f"--tp {tp} does not divide the {n} devices "
+                         f"in use")
 
 
 # ---- collectives -------------------------------------------------------
@@ -180,18 +236,33 @@ def _collective_device() -> torch.device:
         else torch.device("cpu")
 
 
-def all_reduce_(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """In-place all-reduce (``sum`` or ``max``) outside autograd; a CUDA
-    tensor under gloo goes through the host. Identity without a group."""
-    if not active():
+def all_reduce_(t: torch.Tensor, op: str = "sum",
+                group: str = "data") -> torch.Tensor:
+    """In-place all-reduce (``sum`` or ``max``) outside autograd over the
+    ``group`` axis: ``data`` (the default), ``model`` or ``world``. A CUDA
+    tensor under gloo goes through the host, a bfloat16 one through
+    float32 (so a sum rounds once); a ``channels_last`` tensor is reduced
+    as its NHWC view. Identity without a group, and over the model axis
+    without a grid."""
+    if not active() or (group == "model" and _state["tp"] == 1):
         return t
+    pg = _state["groups"].get(group) if group != "world" else None
     rop = {"sum": tdist.ReduceOp.SUM, "max": tdist.ReduceOp.MAX}[op]
-    if _state["backend"] == "gloo" and t.is_cuda:
-        host = t.cpu()
-        tdist.all_reduce(host, rop)
-        t.copy_(host)
+    gloo = _state["backend"] == "gloo"
+    if t.dim() == 4 and not t.is_contiguous() \
+            and t.is_contiguous(memory_format=torch.channels_last):
+        buf = t.permute(0, 2, 3, 1)
     else:
-        tdist.all_reduce(t, rop)
+        buf = t
+    if (gloo and (t.is_cuda or t.dtype == torch.bfloat16)) \
+            or not buf.is_contiguous():
+        host = buf.to("cpu" if gloo else buf.device,
+                      torch.float32 if gloo and t.dtype == torch.bfloat16
+                      else t.dtype, memory_format=torch.contiguous_format)
+        tdist.all_reduce(host, rop, group=pg)
+        buf.copy_(host)
+    else:
+        tdist.all_reduce(buf, rop, group=pg)
     return t
 
 
@@ -258,19 +329,46 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     return _GatherRows.apply(x)
 
 
-def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
-    """Replace every gradient of ``params`` by its mean over the ranks: one
-    all-reduce of all of them flattened into one buffer."""
-    if not active():
-        return
-    grads = [p.grad for p in params if p.grad is not None]
+def _reduce_flat(grads, group: str, divisors) -> None:
     if not grads:
         return
     flat = _flatten_dense_tensors(grads)
     stats["gradient_bytes"] += flat.numel() * flat.element_size()
-    all_reduce_(flat).div_(world())
-    for g, r in zip(grads, _unflatten_dense_tensors(flat, grads)):
-        g.copy_(r)
+    all_reduce_(flat, group=group)
+    for g, r, d in zip(grads, _unflatten_dense_tensors(flat, grads),
+                       divisors):
+        g.copy_(r.div_(d))
+
+
+def reduce_gradients(params: Iterable[torch.nn.Parameter]) -> None:
+    """Replace every gradient of ``params`` by the single-process gradient
+    of the global batch: without a grid, the mean over the ranks (one
+    all-reduce of them all flattened into one buffer). On a grid, each
+    rank of a data index holds ``world()`` times its images' share
+    (:mod:`tllod_torch.parallel.mesh`): of a split parameter's shard (its
+    mean over the data axis), of a replicated one (alike on the model axis:
+    its mean over all ranks, so the copies stay bit-equal), or, under
+    ``--sp``, a backbone weight's partial sum over this rank's rows (its
+    sum over the model axis, then mean over the data axis). Every trained
+    parameter takes part, at zero where this rank computed no gradient."""
+    if not active():
+        return
+    params = [p for p in params if p.requires_grad or p.grad is not None]
+    tp = _state["tp"]
+    if tp == 1:
+        grads = [p.grad for p in params if p.grad is not None]
+        _reduce_flat(grads, "world", [world()] * len(grads))
+        return
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    split = [p.grad for p in params if getattr(p, "tp_split", False)]
+    rest = [p for p in params if not getattr(p, "tp_split", False)]
+    _reduce_flat([p.grad for p in rest], "world",
+                 [world() if getattr(p, "sp_partial", False)
+                  else global_world() for p in rest])
+    if world() > 1:
+        _reduce_flat(split, "data", [world()] * len(split))
 
 
 def sync_image_shapes(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -284,6 +382,7 @@ def sync_image_shapes(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     im = np.asarray(batch["im_data"])
     hw = torch.tensor(im.shape[-3:-1], dtype=torch.int64,
                       device=_collective_device())
+    # over the data axis: a model group's ranks read the same images
     h, w = (int(v) for v in all_reduce_(hw, "max").cpu())
     if (h, w) == im.shape[-3:-1]:
         return batch
@@ -293,10 +392,11 @@ def sync_image_shapes(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 
 def all_gather_object(obj) -> list:
-    """Every rank's ``obj``, in rank order (``[obj]`` without a group)."""
+    """Every rank's ``obj``, in global rank order (``[obj]`` without a
+    group)."""
     if not active():
         return [obj]
-    out = [None] * world()
+    out = [None] * global_world()
     tdist.all_gather_object(out, obj)
     return out
 

@@ -25,8 +25,11 @@ gradient (ATF's and PA-ATF's ``backbone_anc`` conv1-2, IDF's
 as optax does: decay and momentum move it under SGD, and under Adam the
 moments of its pure decay gradient move it by about lr a step. The clip is
 optax's ``clip_by_global_norm``: ``(g / ‖g‖) · max`` unless ``‖g‖ < max``,
-with no epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6). The
-moments start at 0, as optax's do. The update is ``torch._foreach_*`` ops
+with no epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6). Under
+``--tp`` a rank holds the shards of the split tensors
+(:mod:`tllod_torch.parallel.mesh`) and their optimizer state; the norm
+sums a split tensor's squares over the model group, and a replicated
+one's once. The moments start at 0, as optax's do. The update is ``torch._foreach_*`` ops
 that read the rate (and Adam's bias corrections) from device tensors: they
 are host-side functions of the update count, filled in before each update,
 so no step waits for the card and a CUDA graph can replay the update
@@ -50,6 +53,7 @@ import torch
 from torch import nn
 
 from tllod_torch.ops.grl import weak_scalar
+from tllod_torch.parallel import dist
 
 
 def is_bias(name: str) -> bool:
@@ -130,6 +134,11 @@ class _Chain(torch.optim.Optimizer):
         # each group's −lr·scale, on its parameters' device
         self.rates = [torch.zeros((), device=g["params"][0].device)
                       for g in self.param_groups]
+        # the shards of --tp's split tensors, in the clip's order
+        split = [bool(getattr(p, "tp_split", False))
+                 for g in self.param_groups for p in g["params"]]
+        self.split = (torch.tensor(split, device=self.rates[0].device)
+                      if any(split) else None)
 
     def named_params(self) -> Dict[str, nn.Parameter]:
         return {n: p for g in self.param_groups
@@ -144,6 +153,20 @@ class _Chain(torch.optim.Optimizer):
             g["lr"] = lr * g["lr_scale"]
             rate.fill_(-g["lr"])
 
+    def grad_norm(self) -> torch.Tensor:
+        """The L2 norm of every trained parameter's gradient together:
+        optax's ``global_norm``, over JAX's whole sharded tree under
+        ``--tp`` (a split tensor's squares summed over the model group,
+        once, a replicated one's once)."""
+        norms = torch.stack(torch._foreach_norm(
+            [p.grad for g in self.param_groups for p in g["params"]]))
+        if self.split is None:
+            return torch.linalg.vector_norm(norms)
+        sq = norms.square()
+        shards = dist.all_reduce_(torch.where(self.split, sq, 0.0).sum(),
+                                  group="model")
+        return torch.sqrt(torch.where(self.split, 0.0, sq).sum() + shards)
+
     def _decayed_grads(self):
         """Per group (its parameters, their clipped gradients with the
         decay added, its rate): the chain up to the moments."""
@@ -153,8 +176,7 @@ class _Chain(torch.optim.Optimizer):
                 p.grad = torch.zeros_like(p)
         if self.clip_norm is not None:
             grads = [p.grad for p in params]
-            norm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(grads)))
+            norm = self.grad_norm()
             # (g / norm) * max unless norm < max, with no epsilon
             keep = norm < self.clip_norm
             one = torch.ones_like(norm)
