@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--out output/chip_smoke]
     python3 chip_smoke.py --only optim|crop|coco|parallel   # one phase
     python3 chip_smoke.py --only parallel-perturbed  # 5h (b) must fail
+    python3 chip_smoke.py --only optim-perturbed  # 5f's [interchange] must fail
 
 Phases, each ending the run nonzero on failure:
 
@@ -17,7 +18,7 @@ Phases, each ending the run nonzero on failure:
    ``eval_engine.detect_chunks`` at eval batch 1 and then 4, then VOC AP
    against in-memory ground truth. Launch counters are set to 0 just before
    and read just after; both kernels must have launched. Prints ms/image per
-   batch size: the median of 5 passes over the images after a warm-up pass,
+   batch size: the median of 3 passes over the images after a warm-up pass,
    each between ``torch.cuda.synchronize()`` calls. Then ``torch.profiler``
    traces one eval-batch-4 chunk: CUDA time by kernel and the device's busy
    share (the trace goes to ``<out>/chip_smoke_trace.json``).
@@ -83,7 +84,7 @@ Phases, each ending the run nonzero on failure:
    evaluator on jittered ground truth equal to the stats pinned from the
    CPU, and AP 1.0 on the exact ground truth.
 5. Train: the full-width DAF model (``tllod_torch.methods.daf``, random
-   weights from ``--seed``) takes 2 warm-up and 10 timed SGD steps through
+   weights from ``--seed``) takes 2 warm-up and 6 timed SGD steps through
    ``train.train_step`` on one source and one target 600x1200 image with
    15 gt boxes each (TRAIN 12000 -> 2000 proposals, 256 sampled RoIs, the
    target under TEST 6000 -> 300). Launch counters are set to 0 before the
@@ -151,7 +152,7 @@ Phases, each ending the run nonzero on failure:
    their plain versions.
    5b. The supervised step (``[faster_rcnn]``): full-width VGG16 on one
    600x1200 image through ``train.train_step`` with ``detection_loss``;
-   counters reset before the 10 timed steps and read after (RoIAlignAvg,
+   counters reset before the 6 timed steps and read after (RoIAlignAvg,
    its backward and NMS must launch); losses finite; ms/step; one
    profiled step.
    5d. The fused trainer (``[fused]`` lines), after each of the nine train
@@ -172,7 +173,7 @@ Phases, each ending the run nonzero on failure:
    update within one float32 spacing of Adam applied to its gradients). A
    ``torch.profiler``
    trace of one replay counts each kernel's launches by name; eager and
-   graph ms/step in turns (3 rounds of 10 steps each way), the replay's
+   graph ms/step in turns (2 rounds of 8 steps each way), the replay's
    busy ms, peak memory. A ``[fused] summary`` line; each path's summary
    has a ``fused`` entry in the kernels JSON.
    5e. ``--bf16`` (``[bf16 <method>]`` lines): DAF, MAF, ATF, PA-ATF and
@@ -180,7 +181,7 @@ Phases, each ending the run nonzero on failure:
    SGD and losses), at phase 5's widths, images and SGD: the drift of one
    forward's losses against the float32 model from the same state and
    draws; DAF's card-vs-CPU pair at bfloat16 (losses within 2e-2, the
-   gradient limits BF16_REF_LIMITS); 5 timed steps with the counters reset
+   gradient limits BF16_REF_LIMITS); 3 timed steps with the counters reset
    before and read after, each kernel launched once a step at each site as
    in float32 (RoIPool 3 forward and 3 backward a PA-ATF step) and no
    gradient-layout copy; ms/step, peak memory, a profiled step; every
@@ -195,7 +196,19 @@ Phases, each ending the run nonzero on failure:
    C = 509). Then ``fused_phase`` for DAF at bfloat16.
    5f. ``[optim]``: DAF's eager step under the reference SGD,
    ``--bf16_momentum`` and ``--o adam``: ms/step, peak memory, optimizer
-   state bytes; then ``fused_phase`` under Adam.
+   state bytes. After each, ``[interchange]``: the model and optimizer
+   written through the port's ``.npz`` writer (the layout that
+   ``tools/jax_checkpoint.py`` bridges to JAX's orbax checkpoints) and
+   read into a model from another seed and a fresh optimizer: every
+   parameter, buffer, optimizer tensor and the count ``torch.equal``; one
+   step on both under ``_repeatable_step`` (cuDNN deterministic, the
+   RoIAlignAvg backward plain), still ``torch.equal``; kernel-path steps
+   of both from that state, the loaded model's updates within twice the
+   saved model's eager-vs-eager gap, or 1e-5; the file's bytes, the write and
+   read seconds and the card's name and power limit. Then
+   ``fused_phase`` under Adam, its first step-by-step replay after the
+   ``.npz`` is loaded in place into the captured graph's NaN-filled
+   tensors, held by that phase's gates.
    5g. ``[overfit]``: the learning proof of ``tools/overfit_synth.py``:
    its set rendered in numpy in memory, DAF at full VGG16 width trained
    2000 steps through ``cli.da_runner.train_loop`` with ``--fuse_steps
@@ -325,7 +338,7 @@ VOC_CLIPART_CLASSES = ("__background__", "aeroplane", "bicycle", "bird",
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # float32 outside the tensor cores
 N_IMAGES = 8
-REPS = 5                      # timed passes over the images per batch size
+REPS = 3                      # timed passes over the images per batch size
 IOU_OPS = 15                  # min/max/sub/add for w and h, mul, add/sub, div, compare
 
 
@@ -498,7 +511,8 @@ def main() -> int:
                                                   "chip_smoke"),
                     help="directory for the kernels JSON and the trace")
     ap.add_argument("--only", choices=("optim", "crop", "coco", "parallel",
-                                       "parallel-perturbed"),
+                                       "parallel-perturbed",
+                                       "optim-perturbed"),
                     help="build the kernels, then run phase 5f, 5i, 4c or "
                          "5h's (b)-(d) alone and print its summary; no other "
                          "phase and no ok line. crop also keeps each train "
@@ -506,7 +520,10 @@ def main() -> int:
                          "roi_pool_ab.py --op crop --sites; "
                          "parallel-perturbed runs (b) with fc6's replayed "
                          "update scaled by 1 + 1e-4 and fails unless the "
-                         "gate refuses it")
+                         "gate refuses it; optim-perturbed runs 5f's SGD "
+                         "interchange with the loaded model's kernel-path "
+                         "updates scaled so, and fails unless the gate "
+                         "refuses them")
     args = ap.parse_args()
 
     import torch
@@ -518,6 +535,11 @@ def main() -> int:
     from tllod_torch.ops import _kernels
 
     dev = torch.device("cuda")
+    start = time.perf_counter()
+
+    def mark(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - start:.1f} s")
+
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
@@ -535,11 +557,15 @@ def main() -> int:
     cfg = cfg_from_list(Config(), VGG16_CITYSCAPE)
     os.makedirs(args.out, exist_ok=True)
     if args.only == "optim":
-        out = optim_phase(cfg, args.seed, args.out)["fused_adam"]
+        optim = optim_phase(cfg, args.seed, args.out)
+        out = optim["fused_adam"]
         log("[optim] alone: " + json.dumps({k: out[k] for k in (
             "replayed_update_gap", "eager_update_gap", "replayed_grad_gap",
             "eager_grad_gap", "kernel_replayed_grad_gap",
-            "kernel_eager_grad_gap", "adam_replay_spacings")}))
+            "kernel_eager_grad_gap", "adam_replay_spacings", "npz_load_s")}))
+        log("[interchange] alone: " + json.dumps(
+            {name: optim[name]["interchange"]
+             for name in ("sgd", "sgd bf16", "adam")}))
         return 0
     if args.only == "crop":
         global CROP_SITES
@@ -572,7 +598,19 @@ def main() -> int:
                 return 0
         log("[parallel] perturbed: the gate passed a perturbed replay")
         return 1
+    if args.only == "optim-perturbed":
+        with _perturbed_loaded_steps():
+            try:
+                optim_phase(cfg, args.seed, args.out, names=("sgd",))
+            except RuntimeError as e:
+                if "kernel-path" not in str(e):
+                    raise
+                log(f"[interchange] perturbed: refused as it must be: {e}")
+                return 0
+        log("[interchange] perturbed: the gate passed perturbed steps")
+        return 1
 
+    mark("build")
     # ---- 2. main path ----
     from tllod_torch.models.faster_rcnn import FasterRCNN
 
@@ -594,22 +632,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("[parity] cudnn.allow_tf32=False")
 
+    mark("2 main path")
     # ---- 3. reference: card vs CPU, stage by stage, small image ----
     check_reference(model, cfg, args.seed)
 
+    mark("3 reference")
     # ---- 4. kernel parity on the main path's own tensors ----
     kernels = kernel_parity(model, ims, info, launches)
     adversarial = _nms_adversarial()
     del model
 
+    mark("4 kernel parity")
     # ---- 4b. ResNet-101 eval at 600x1200 ----
     res_kernels, res_eval = resnet_eval_phase(args.seed, args.out)
     kernels += res_kernels
     torch.cuda.empty_cache()
+    mark("4b res101")
     # ---- 4c. [coco]: COCO-protocol eval at 81 classes, 600x800 ----
     coco_kernels, coco = coco_phase(args.seed, args.out)
     kernels += coco_kernels
 
+    mark("4c coco")
     # ---- 5. train: the DAF, MAF, ATF, PT-MAF, PA-ATF, US-DAF, MAD and IDF
     #         steps, their kernels, card vs CPU, profile; then IDF's eval
     #         and the supervised step
@@ -631,6 +674,7 @@ def main() -> int:
         f"{supervised['busy_ms']:.3f} ms; idf eval "
         f"{idf_eval['ms_per_image']:.3f} ms/image, busy "
         f"{idf_eval['busy_ms']:.3f} ms")
+    mark("5, 5b-5d train")
     # ---- 5e. --bf16 on its five methods; --fuse_steps at bf16 ----
     bf16 = {}
     for spec in TRAIN_METHODS:
@@ -653,14 +697,18 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
+    mark("5e bf16")
     # ---- 5f. --o adam and --bf16_momentum; 5g. the learning proof ----
     optim = optim_phase(cfg, args.seed, args.out)
+    mark("5f optim")
     overfit = [overfit_phase(args.seed, args.out, bf) for bf in (False,
                                                                 True)]
+    mark("5g overfit")
     # ---- 5h. [parallel]: B = 2; --mGPUs at world 1; two ranks ----
     par_kernels, parallel = parallel_phase(cfg, args.seed, args.out,
                                            summaries)
     kernels += par_kernels
+    mark("5h parallel")
     # ---- 5i. [crop]: POOLING_MODE='crop', the RoICrop kernels ----
     crop_kernels, crop = crop_phase(args.seed, ims, info, roidb, args.out)
     kernels += crop_kernels
@@ -682,7 +730,9 @@ def main() -> int:
         for name, b in bf16.items()))
     log("[optim] summary: " + "; ".join(
         f"{name} {o['ms_per_step']:.3f} ms/step, peak "
-        f"{o['peak_memory_gib']:.2f} GiB" for name, o in optim.items()
+        f"{o['peak_memory_gib']:.2f} GiB, .npz {o['interchange']['bytes']} "
+        f"bytes written in {o['interchange']['write_s']:.2f} s and read in "
+        f"{o['interchange']['read_s']:.2f} s" for name, o in optim.items()
         if name != "fused_adam"))
     log("[overfit] summary: " + "; ".join(
         f"{o['dtype']} mAP {o['train_map']:.4f} after {o['steps']} steps "
@@ -697,6 +747,7 @@ def main() -> int:
                    "parallel": parallel, "crop": crop}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
 
+    mark("5i crop")
     # ---- 6. card ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2115,7 +2166,7 @@ def kernel_kind(name: str) -> str:
 
 TRAIN_NET, TRAIN_HW, REF_HW = "vgg16", (600, 1200), (160, 320)
 TRAIN_GT = 15               # Cityscapes-like objects per image (bench.py)
-TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 REF_PAIRS = 3               # noise-image pairs of the card-vs-CPU train check
 # limits of that check, about twice the largest reading over the six pairs
 # of seeds 0 and 1 (9.7e-4, 5.1e-4, 3.7e-3 on an H100; PERF.md section 6):
@@ -3232,7 +3283,7 @@ def check_train_reference(spec, model, extra, cfg, seed):
 # (fewer than phase 5's: the eager step is host-bound, and the profile
 # carries the device breakdown)
 BF16_METHODS = ("daf", "maf", "atf", "pa_atf", "us_daf")
-FLAG_STEPS = 5
+FLAG_STEPS = 3
 # DAF's card-vs-CPU bf16 pair: losses within BF16_REF_LOSS relative (+ 1e-3
 # absolute), gradients as ``spec.limits`` reads them (all parameters, the
 # median one, the worst one): about twice the larger reading of seeds 0
@@ -3417,15 +3468,17 @@ def bf16_phase(spec, cfg, seed, out_dir):
     return entries, summary, (model, extra, opt, src, tgt)
 
 
-def optim_phase(cfg, seed, out_dir):
+def optim_phase(cfg, seed, out_dir, names=("sgd", "sgd bf16", "adam")):
     """``[optim]``: DAF's eager step (phase 5's model, images and rate)
     under the reference SGD, ``--bf16_momentum`` and ``--o adam``, in that
-    order, each on a model from ``seed``: TRAIN_WARMUP steps, then
+    order (``names``), each on a model from ``seed``: TRAIN_WARMUP steps, then
     FLAG_STEPS timed ones with the peak memory reset before; finite
     losses; ms/step, peak memory and the optimizer state's bytes. Then
-    ``fused_phase`` under Adam, which holds Adam's replays by their
-    gradients and by the update Adam makes of them (see there). Returns
-    the summary."""
+    ``interchange_check`` of the model and optimizer, and, under Adam,
+    ``fused_phase``, which holds Adam's replays by their gradients and by
+    the update Adam makes of them (see there), its first replay after the
+    ``.npz`` is loaded into what the captured graph reads. Returns the
+    summary."""
     import torch
     from tllod_torch.train import train_step
 
@@ -3435,7 +3488,7 @@ def optim_phase(cfg, seed, out_dir):
     src = make_train_batch(*spec.train_hw, 1, seed + 10, cfg, dev)
     tgt = make_train_batch(*spec.train_hw, 0, seed + 11, cfg, dev)
     out = {}
-    for name in ("sgd", "sgd bf16", "adam"):
+    for name in names:
         model, _ = spec.build(cfg, seed, dev)
         opt = phase_optimizer(spec, cfg, model, name)
         state = sum(t.numel() * t.element_size()
@@ -3464,6 +3517,8 @@ def optim_phase(cfg, seed, out_dir):
             f"(median of {FLAG_STEPS}), peak memory {peak:.2f} GiB, "
             f"optimizer state {state / 2 ** 20:.1f} MiB, losses "
             + ", ".join(f"{v:.4f}" for v in losses))
+        out[name]["interchange"], npz, saved = interchange_check(
+            spec, cfg, seed, name, model, opt, (src, tgt), out_dir)
         if name == "adam":
             out["fused_adam"] = fused_phase(
                 "adam", model, spec.loss, opt, lambda i: (
@@ -3472,15 +3527,152 @@ def optim_phase(cfg, seed, out_dir):
                     make_train_batch(*spec.train_hw, 0, seed + 21 + 2 * i,
                                      cfg, dev)),
                 {"roi_align_avg": 2, "roi_align_avg_backward": 2, "nms": 2},
-                seed, out_dir)
-        del model, opt
+                seed, out_dir, npz=(npz, saved))
+        os.remove(npz)
+        del model, opt, saved
         torch.cuda.empty_cache()
+    if not {"sgd", "sgd bf16", "adam"} <= set(out):
+        return out
     saved = out["sgd"]["state_bytes"] - out["sgd bf16"]["state_bytes"]
     log(f"[optim] --bf16_momentum keeps {saved / 2 ** 20:.1f} MiB less "
         f"optimizer state; peak {out['sgd']['peak_memory_gib']:.2f} -> "
         f"{out['sgd bf16']['peak_memory_gib']:.2f} GiB; adam "
         f"{out['adam']['peak_memory_gib']:.2f} GiB")
     return out
+
+
+# kernel-path steps of the saved model, and of the loaded one, from one
+# state: under SGD the path's update lands in a few discrete outcomes
+# 1.2e-5-1.6e-5 apart, each tight (gaps under 3e-7), and loaded steps that
+# miss every outcome the saved steps hit read over the 1e-5 floor. On an
+# H100 (``interchange_spread.py``) 4 saved steps and 1 loaded refused a
+# correct load in 5.2% of resampled draws, 8 and 8 in 1 of 20000
+INTERCHANGE_EAGER = INTERCHANGE_TWIN = 8
+
+
+def _state_equal(a, b):
+    """Whether two (model, optimizer) pairs hold the same tensors: every
+    ``state_dict`` entry of each, dtype and bits, and the count."""
+    import torch
+
+    (ma, oa), (mb, ob) = a, b
+    sa, sb = ma.state_dict(), mb.state_dict()
+    da, db = oa.state_dict(), ob.state_dict()
+    if set(sa) != set(sb) or set(da) != set(db) or da["count"] != db["count"]:
+        return False
+    if not all(sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k])
+               for k in sa):
+        return False
+    return all(set(da[k]) == set(db[k]) and all(
+        da[k][n].dtype == db[k][n].dtype and torch.equal(da[k][n], db[k][n])
+        for n in da[k]) for k in da if k != "count")
+
+
+def _clone_state(model, opt):
+    return ({k: v.clone() for k, v in model.state_dict().items()},
+            {k: ({n: t.clone() for n, t in v.items()}
+                 if isinstance(v, dict) else v)
+             for k, v in opt.state_dict().items()})
+
+
+def interchange_check(spec, cfg, seed, name, model, opt, args, out_dir):
+    """``[interchange]``: the checkpoint interchange (``utils.checkpoint``)
+    at full width. ``model`` and ``opt`` go through the ``.npz`` writer,
+    then the reader loads the file into a model built from another seed
+    and a fresh optimizer: every parameter, buffer and optimizer tensor and
+    the count ``torch.equal`` to the saved ones. From there one step on
+    each under ``_repeatable_step``: both pairs still equal. Then the
+    kernel path from that state: the saved model stepped INTERCHANGE_EAGER
+    times and the loaded one INTERCHANGE_TWIN times (each restored
+    between); the nearest pair of a loaded and a saved step's updates (L2
+    over the trained parameters) held to twice the largest eager-vs-eager
+    gap among the saved model's, or PAR_FLOOR, as phase 5h (b) holds its
+    steps. The kernel path's sums land in a few discrete outcomes (see
+    INTERCHANGE_EAGER), so one loaded step is no sample of it; a fault of
+    the load is in the state, and moves every loaded step. Prints the
+    file's bytes, the write and read seconds, the gaps and the card.
+    Returns the summary, the file's path (the caller removes it) and the
+    state written (a copy on the card)."""
+    import torch
+    from tllod_torch.train import train_step
+    from tllod_torch.utils.checkpoint import (resume_train_state,
+                                              save_checkpoint)
+
+    path = os.path.join(out_dir, f"interchange_{name.replace(' ', '_')}.npz")
+    torch.cuda.synchronize()
+    t0 = start = time.perf_counter()
+    save_checkpoint(path, model=model, optimizer=opt, step=opt.count,
+                    epoch=1, meta={"net": spec.net,
+                                   "pooling_mode": cfg.POOLING_MODE})
+    write_s = time.perf_counter() - t0
+    saved = _clone_state(model, opt)
+    twin, _ = spec.build(cfg, seed + 1, model.device)
+    twin_opt = phase_optimizer(spec, cfg, twin, name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resume_train_state(twin, twin_opt, path)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    pairs = ((model, opt), (twin, twin_opt))
+    loaded = _state_equal(*pairs)
+    with _repeatable_step():
+        for m, o in pairs:
+            train_step(m, spec.loss, o, args, seed=seed, step=o.count)
+    repeatable = _state_equal(*pairs)
+
+    def trained():
+        return {n: p.detach().clone() for n, p in opt.named_params().items()}
+
+    def kernel_steps(m, o, n):
+        state, out = _clone_state(m, o), []
+        for i in range(n):
+            if i:
+                m.load_state_dict(state[0])
+                o.load_state_dict(state[1])
+            train_step(m, spec.loss, o, args, seed=seed, step=o.count)
+            out.append({k: p.detach().clone()
+                        for k, p in o.named_params().items()})
+        return out
+
+    before = trained()
+    steps = kernel_steps(model, opt, INTERCHANGE_EAGER)
+    twins = kernel_steps(twin, twin_opt, INTERCHANGE_TWIN)
+    # np.max and np.min keep a NaN, which then fails the gate
+    eager = float(np.max([_update_gap(a, b, before)
+                          for a, b in itertools.combinations(steps, 2)]))
+    nearest = [float(np.min([_update_gap(a, b, before) for a in steps]))
+               for b in twins]
+    resumed = float(np.min(nearest))
+    del twin, twin_opt, twins, before, steps
+    torch.cuda.empty_cache()
+    out = {"bytes": os.path.getsize(path), "write_s": write_s,
+           "read_s": read_s, "seconds": time.perf_counter() - start,
+           "loaded_equal": loaded,
+           "repeatable_step_equal": repeatable,
+           "kernel_update_gap": resumed, "kernel_update_gaps": nearest,
+           "eager_update_gap": eager,
+           "card": _card()}
+    log(f"[interchange] DAF {name} ({out['seconds']:.1f} s in all): wrote "
+        f"{out['bytes']} bytes of .npz in "
+        f"{write_s:.2f} s, read them into a model from seed {seed + 1} and "
+        f"a fresh optimizer in {read_s:.2f} s: every parameter, buffer, "
+        f"optimizer tensor and the count equal {loaded}; after one step "
+        f"each under _repeatable_step equal {repeatable}; kernel-path "
+        f"steps: the loaded model's {INTERCHANGE_TWIN} updates rel. L2 "
+        + ", ".join(f"{g:.3g}" for g in nearest) +
+        f" from the nearest of the saved model's {INTERCHANGE_EAGER}, held "
+        f"{resumed:.3g}; the largest gap among the saved model's "
+        f"{eager:.3g}; {out['card']}")
+    if not loaded or not repeatable:
+        raise RuntimeError(f"[interchange] {name}: the loaded state differs "
+                           f"from the saved (loaded {loaded}, after a "
+                           f"repeatable step {repeatable})")
+    if not resumed <= max(2 * eager, PAR_FLOOR):     # a NaN fails
+        raise RuntimeError(f"[interchange] {name}: the loaded model's "
+                           f"kernel-path updates are {resumed:.3g} or more "
+                           f"from the saved model's, eager-vs-eager "
+                           f"{eager:.3g}")
+    return out, path, saved
 
 
 # tools/overfit_synth.py's learning proof: its set rendered in numpy (the
@@ -3603,7 +3795,7 @@ def overfit_phase(seed, out_dir, bf16):
 
 FUSE_K = 4                  # fused steps held to eager steps from one state
 ADAM_EAGER = 4              # repeatable eager steps a state under Adam
-FUSE_ROUNDS, FUSE_ROUND_STEPS = 3, 10     # timed rounds each way, in turns
+FUSE_ROUNDS, FUSE_ROUND_STEPS = 2, 8      # timed rounds each way, in turns
 # each kernel's trace name and the launch counter it is credited to
 TRACE_KERNELS = (("roi_align_avg_forward_kernel", "roi_align_avg"),
                  ("roi_align_avg_backward_kernel", "roi_align_avg_backward"),
@@ -3696,7 +3888,7 @@ def _repeatable_step():
 
 
 def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
-                out_dir):
+                out_dir, npz=None):
     """Phase 5d (``[fused]``): ``train.TrainStepMulti``, the CUDA-graph
     replays of ``--fuse_steps``, on the train path that the phase before it
     drove, with its model, SGD and config; ``args_for(i)`` gives the
@@ -3743,7 +3935,12 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     applied eagerly to the kernel replay's own gradients from the same
     state (moments, count) gives every parameter within one float32
     spacing of the replay's. Every reading is printed, and a NaN in any
-    fails its gate.
+    fails its gate. Given ``npz`` (the path of a checkpoint of this model
+    and optimizer in the interchange layout, and the state it holds), the
+    first of these states is the file's, and right before its replay
+    every parameter, buffer and optimizer tensor is filled with NaN and
+    the file loaded, in place, into the tensors the captured graph reads:
+    the replay is held by the same gates.
 
     A ``torch.profiler`` trace of one replay counts ``per_step`` launches
     of each kernel by name. Then eager against graph ms/step in turns,
@@ -3754,6 +3951,7 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     import torch
     from tllod_torch.ops import _kernels
     from tllod_torch.train import StepRandom, TrainStepMulti, train_step
+    from tllod_torch.utils.checkpoint import resume_train_state
     from tllod_torch.utils.optim import Adam
 
     torch.backends.cudnn.allow_tf32 = True          # the timed defaults
@@ -3778,10 +3976,7 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
         return {"draws": rng.drawn}
 
     def save():
-        return ({k: v.clone() for k, v in model.state_dict().items()},
-                {k: ({n: t.clone() for n, t in v.items()}
-                     if isinstance(v, dict) else v)
-                 for k, v in opt.state_dict().items()})
+        return _clone_state(model, opt)
 
     def restore(state):
         model.load_state_dict(state[0])
@@ -3923,8 +4118,22 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
     gap_e, gap_r, adam_ulps = [], [], []
     grad_e, grad_r, kgrad_e, kgrad_r = [], [], [], []
     runner.kept.clear()
+    def nan_fill():
+        """Every tensor the step reads, NaN, and the count 0."""
+        with torch.no_grad():
+            for t in model.state_dict().values():
+                if t.is_floating_point():
+                    t.fill_(float("nan"))
+            for v in opt.state_dict().values():
+                for t in (v.values() if isinstance(v, dict) else ()):
+                    t.fill_(float("nan"))
+        opt.count = 0
+
+    loaded_s = None
     with sel:
         for i, args in enumerate(batches):
+            if npz is not None and i == 0:
+                restore(npz[1])
             state = save()
             before = trained()
             m_e, k_e = eager_step(args, i)
@@ -3951,6 +4160,13 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
                                     itertools.combinations(g_det, 2)]))
                 grad_r.append(gap(g_dr, g_det[0]))
                 del g_det, g_dr
+            if npz is not None and i == 0:
+                nan_fill()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                resume_train_state(model, opt, npz[0])
+                torch.cuda.synchronize()
+                loaded_s = time.perf_counter() - t0
             m_r = runner(opt.count, [args])
             k_r = runner.kept.pop()
             p_r = trained()
@@ -3998,7 +4214,10 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
            f"{', '.join(f'{g:.3g}' for g in grad_e)}; Adam of the replay's "
            f"gradients from its state against the replay, float32 spacings "
            f"at most {', '.join(f'{u:.3g}' for u in adam_ulps)}"
-           if adam else ""))
+           if adam else "")
+        + (f"; replay 0 from the .npz, loaded in {loaded_s:.2f} s in place "
+           f"into the captured graph's NaN-filled tensors"
+           if npz is not None else ""))
     # written so that a NaN fails
     if not loss_1 <= 1e-6:
         raise RuntimeError(f"{tag} replayed losses off by {loss_1:.3g} "
@@ -4072,7 +4291,7 @@ def fused_phase(tag, model, loss_fn, opt, args_for, per_step, seed,
             "eager_update_gap": gap_e, "replayed_grad_gap": grad_r,
             "eager_grad_gap": grad_e, "kernel_replayed_grad_gap": kgrad_r,
             "kernel_eager_grad_gap": kgrad_e,
-            "adam_replay_spacings": adam_ulps,
+            "adam_replay_spacings": adam_ulps, "npz_load_s": loaded_s,
             "held_after_capture_gib": held,
             "peak_capture_gib": peak_capture, "reserved_gib": reserved,
             "launches_per_replay": per_step, "traced_per_replay": traced,
@@ -4376,10 +4595,7 @@ def world1_phase(cfg, seed, out_dir):
     model.load_state_dict(state0)
 
     def save():
-        return ({k: v.clone() for k, v in model.state_dict().items()},
-                {k: ({n: t.clone() for n, t in v.items()}
-                     if isinstance(v, dict) else v)
-                 for k, v in opt.state_dict().items()})
+        return _clone_state(model, opt)
 
     def restore(st):
         model.load_state_dict(st[0])
@@ -4446,8 +4662,8 @@ def world1_phase(cfg, seed, out_dir):
         del st, before, p_e, p_e2, pd_e, pd_e2, pd_r
     del det_runner
     times = {"eager": [], "graph": []}
-    seq = [batches[i % PAR_FUSE_K] for i in range(10)]
-    for _ in range(3):
+    seq = [batches[i % PAR_FUSE_K] for i in range(FUSE_ROUND_STEPS)]
+    for _ in range(FUSE_ROUNDS):
         for way, fn in (("eager", lambda: [eager(a) for a in seq]),
                         ("graph", lambda: runner(opt.count, seq))):
             torch.cuda.synchronize()
@@ -4469,8 +4685,8 @@ def world1_phase(cfg, seed, out_dir):
         f"{det_loss_r:.3g} (eager-eager {det_loss_e:.3g}), update rel. L2 "
         f"{', '.join(f'{g:.3g}' for g in det_r)} (eager-eager "
         f"{', '.join(f'{g:.3g}' for g in det_e)}); eager DP "
-        f"{e_ms:.3f} ms/step, graph DP {g_ms:.3f} ms/step (3 rounds of 10 "
-        f"each way, in turns)")
+        f"{e_ms:.3f} ms/step, graph DP {g_ms:.3f} ms/step ({FUSE_ROUNDS} "
+        f"rounds of {FUSE_ROUND_STEPS} each way, in turns)")
     # written so that a NaN fails
     if not (det_loss_r <= max(2 * det_loss_e, PAR_FLOOR)
             and max(det_r) <= max(2 * max(det_e), PAR_FLOOR)):
@@ -4521,6 +4737,43 @@ def _perturbed_replays():
         yield
     finally:
         train.TrainStepMulti._cuda_step = step
+
+
+@contextlib.contextmanager
+def _perturbed_loaded_steps():
+    """While entered, each kernel-path step of a model that
+    ``utils.checkpoint.resume_train_state`` loaded scales its update by
+    1 + 1e-4, as a rate or a schedule count read wrong would: a fault
+    phase 5f's ``[interchange]`` gate must refuse (``--only
+    optim-perturbed``). Steps under ``_repeatable_step`` are left as they
+    are."""
+    import torch
+    import tllod_torch.train as train
+    import tllod_torch.utils.checkpoint as ckpt
+
+    step, resume, loaded = train.train_step, ckpt.resume_train_state, []
+
+    def resumed(model, *a, **kw):
+        loaded.append(model)
+        return resume(model, *a, **kw)
+
+    def perturbed(model, *a, **kw):
+        if torch.backends.cudnn.deterministic \
+                or not any(m is model for m in loaded):
+            return step(model, *a, **kw)
+        params = [p for p in model.parameters() if p.requires_grad]
+        before = [p.detach().clone() for p in params]
+        out = step(model, *a, **kw)
+        with torch.no_grad():
+            for p, b in zip(params, before):
+                p.add_((p - b) * 1e-4)
+        return out
+    train.train_step, ckpt.resume_train_state = perturbed, resumed
+    try:
+        yield
+    finally:
+        train.train_step, ckpt.resume_train_state = step, resume
+        loaded.clear()
 
 
 def _raise_norm_biases(model):

@@ -233,6 +233,66 @@ def test_sgd_matches_optax_chain(daf_case):
     assert opt.count == 3
 
 
+def test_jax_checkpoint_resumes_in_the_port_with_jax_s_next_update(
+        daf_case, tmp_path):
+    """A JAX orbax checkpoint of the DAF params and the optax SGD state
+    after two updates, through ``tools/jax_checkpoint.py to-npz``, resumed
+    in the port (``--r`` finds the ``.npz`` by its checkpoint name): the
+    port's third update equals JAX's third update from its own
+    ``resume_train_state``, at ``test_sgd_matches_optax_chain``'s
+    tolerances, across the schedule's decay."""
+    from flax import serialization
+    from tools import jax_checkpoint as jc
+    from tllod_tpu.train import TrainState
+    from tllod_tpu.utils.checkpoint import (resume_train_state,
+                                            save_checkpoint)
+    from tllod_torch.cli.da_runner import resume_path
+    from tllod_torch.utils.checkpoint import resume_train_state as t_resume
+
+    _, cfg_t, _, params, _, _ = daf_case
+    rs = np.random.RandomState(7)
+    grads = [jax.tree_util.tree_map(
+        lambda p: (rs.randn(*p.shape) * scale).astype(np.float32), params)
+        for scale in (1e-4, 1.0, 3.0)]
+    j_sched = j_schedule(0.002, 1, 1, 0.1)
+    tx = make_sgd(j_sched, momentum=0.9, weight_decay=5e-4, clip_norm=10.0)
+    state, j_params = tx.init(params), params
+    for g in grads[:2]:
+        updates, state = tx.update(g, state, j_params)
+        j_params = jax.tree_util.tree_map(lambda p, u: p + u, j_params,
+                                          updates)
+    ckpt = str(tmp_path / "daf_1_1_2")
+    save_checkpoint(ckpt, params=j_params, opt_state=state, step=2, epoch=1)
+    resumed, _, _ = resume_train_state(
+        TrainState(params, jax.eval_shape(tx.init, params), 0), ckpt)
+    resumed = jax.device_put(resumed)     # as the train CLIs put it
+    updates, _ = tx.update(grads[2], resumed.opt_state, resumed.params)
+    want = from_jax_params(jax.tree_util.tree_map(
+        lambda p, u: np.asarray(p + u), resumed.params, updates))
+
+    jc.to_npz(ckpt, ckpt + ".npz")
+    model = DAFModel(9, cfg_t, "vgg16_thin", device="cpu")
+    opt = SGD(model.named_parameters(), epoch_decay_schedule(0.002, 1, 1,
+                                                             0.1),
+              momentum=0.9, weight_decay=5e-4, clip_norm=10.0)
+    path = resume_path(str(tmp_path), "daf_1_1_2")
+    assert path == ckpt + ".npz"
+    assert t_resume(model, opt, path) == (1, 2) and opt.count == 2
+    trace = from_jax_params(jax.tree_util.tree_map(
+        np.asarray, serialization.to_state_dict(state)["3"]["trace"]))
+    for n, t in opt.state_dict()["trace"].items():
+        assert torch.equal(t, trace[n]), n
+    tg = from_jax_params(grads[2])
+    for name, p in model.named_parameters():
+        p.grad = tg[name].clone() if p.requires_grad else None
+    opt.step()
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=1e-6,
+                                   atol=1e-7, err_msg=name)
+
+
 def test_daf_tree_crosses_into_the_port(daf_case, tmp_path, monkeypatch):
     """``detector/…``, ``img_da/…`` and ``ins_da/…`` map name for name;
     a torchvision-layout ``vgg16_caffe.pth`` fills backbone and head."""

@@ -21,15 +21,15 @@ before = set(sys.modules)
 import tllod_torch
 for m in pkgutil.walk_packages(tllod_torch.__path__, "tllod_torch."):
     importlib.import_module(m.name)
-import chip_smoke, roi_pool_ab
+import chip_smoke, roi_pool_ab, interchange_spread
 print(sorted(m for m in sys.modules if m.startswith("tllod_torch.")))
 roots = {{m.split(".")[0] for m in set(sys.modules) - before}}
 print(sorted(roots & set({FORBIDDEN!r} + {LAZY!r})))
 """
 # the modules of the MAF, ATF and PT-MAF slice, of the PA-ATF slice, of
 # the US-DAF and supervised-train slice, of the MAD slice, of the IDF
-# slice, of the data-parallel slice and of the datasets slice, which the
-# walk must reach
+# slice, of the data-parallel slice, of the datasets slice and of the
+# checkpoint interchange, which the walk must reach
 SLICE = ("tllod_torch.methods.maf", "tllod_torch.methods.atf",
          "tllod_torch.methods.pt_maf", "tllod_torch.cli.da_runner",
          "tllod_torch.cli.maf_train", "tllod_torch.cli.atf_train",
@@ -48,7 +48,8 @@ SLICE = ("tllod_torch.methods.maf", "tllod_torch.methods.atf",
          "tllod_torch.parallel.multihost", "tllod_torch.data.mask_rle",
          "tllod_torch.data.coco_eval", "tllod_torch.data.coco",
          "tllod_torch.data.imagenet", "tllod_torch.data.vg",
-         "tllod_torch.data.evaluate", "tllod_torch.utils.vis")
+         "tllod_torch.data.evaluate", "tllod_torch.utils.vis",
+         "tllod_torch.utils.checkpoint", "tllod_torch.cli.export_checkpoint")
 
 
 def test_port_and_chip_smoke_import_no_jax_nor_heavy_io():
@@ -66,10 +67,24 @@ def test_port_sources_have_no_jax_import():
                      re.M)
     files = glob.glob(os.path.join(REPO, "tllod_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py"),
-                                      os.path.join(REPO, "roi_pool_ab.py")]
+                                      os.path.join(REPO, "roi_pool_ab.py"),
+                                      os.path.join(REPO,
+                                                   "interchange_spread.py")]
     assert len(files) > 20
     offenders = [f for f in files if pat.search(open(f).read())]
     assert offenders == []
+
+
+def test_jax_checkpoint_tool_imports_no_torch():
+    """``tools/jax_checkpoint.py`` runs where JAX is installed, beside the
+    JAX tools: no ``torch`` and nothing of the port, at any depth."""
+    tree = ast.parse(open(os.path.join(REPO, "tools",
+                                       "jax_checkpoint.py")).read())
+    roots = {a.name.split(".")[0] for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names}
+    roots |= {(node.module or "").split(".")[0] for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom)}
+    assert not roots & {"torch", "tllod_torch"}, roots
 
 
 def test_image_and_config_libraries_load_inside_functions_only():

@@ -144,13 +144,18 @@ def test_tp_checkpoint_evaluates_at_tp1_and_resumes_at_tp2(tmp_path):
               "height": 128, "width": w, "flipped": False}
              for w in (128, 192)]
     for net in ("vgg16_thin", "res14"):
-        assert [bool(p[f"{net}/wrote"]) for p in parts] == [True, False]
-        assert all(bool(p[f"{net}/resumed"]) for p in parts)
+        for key in (net, f"{net}/npz"):     # the .pth and the .npz layout
+            assert [bool(p[f"{key}/wrote"]) for p in parts] == [True, False]
+            assert all(bool(p[f"{key}/resumed"]) for p in parts)
         want_model = FasterRCNN(9, cfg, net, device="cpu", seed=0)
         got_model = FasterRCNN(9, cfg, net, device="cpu", seed=1)
         load_weights(got_model, str(tmp_path / f"{net}_tp2.pth"))
         want_sd, got_sd = want_model.state_dict(), got_model.state_dict()
         assert all(torch.equal(got_sd[k], v) for k, v in want_sd.items())
+        from_npz = FasterRCNN(9, cfg, net, device="cpu", seed=1)
+        load_weights(from_npz, str(tmp_path / f"{net}_tp2.npz"))
+        npz_sd = from_npz.state_dict()
+        assert all(torch.equal(npz_sd[k], v) for k, v in want_sd.items())
         boxes = [run_detection(m, types.SimpleNamespace(num_classes=9),
                                roidb, cfg, verbose_every=0)
                  for m in (want_model, got_model)]

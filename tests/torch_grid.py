@@ -14,6 +14,7 @@ JAX. Each case writes ``<CASE>_<global rank>.npz``.
 - ``ckpt``: :func:`run_ckpt`, ``--tp 2`` checkpoints written and resumed.
 """
 
+import itertools
 import os
 import sys
 
@@ -223,9 +224,10 @@ def run_backbone(name, height, spatial=False, seed=0):
 def run_ckpt(out_dir):
     """A ``vgg16_thin`` and a ``res14`` detector from seed 0, cut to
     ``--tp 2`` shards, write their checkpoints to ``out_dir`` (with an SGD
-    state whose trace is the parameters); the same detectors from seed 1,
-    cut alike, resume from them. Returns whether this rank wrote, and
-    whether the resumed shards and traces equal the writers'."""
+    state whose trace is the parameters), as a ``.pth`` and as an ``.npz``
+    of the interchange layout; the same detectors from seed 1, cut alike,
+    resume from each. Returns whether this rank wrote, and whether the
+    resumed shards and traces equal the writers'."""
     from tllod_torch.models.faster_rcnn import FasterRCNN
     from tllod_torch.utils.checkpoint import (resume_train_state,
                                               save_checkpoint)
@@ -233,8 +235,10 @@ def run_ckpt(out_dir):
 
     dist.make_grid(2)
     res = {}
-    for net in ("vgg16_thin", "res14"):
-        path = os.path.join(out_dir, f"{net}_tp2.pth")
+    for net, ext in itertools.product(("vgg16_thin", "res14"),
+                                      (".pth", ".npz")):
+        path = os.path.join(out_dir, f"{net}_tp2{ext}")
+        key = net if ext == ".pth" else f"{net}/npz"
         models, opts = [], []
         for seed in (0, 1):
             model = mesh.parallelize(FasterRCNN(
@@ -245,13 +249,13 @@ def run_ckpt(out_dir):
                 opt.state[p]["trace"].copy_(p.detach())
             models.append(model)
             opts.append(opt)
-        res[f"{net}/wrote"] = np.array(save_checkpoint(
+        res[f"{key}/wrote"] = np.array(save_checkpoint(
             path, model=models[0], optimizer=opts[0], meta={"net": net}))
         dist.barrier()
         resume_train_state(models[1], opts[1], path)
         a, b = (m.state_dict() for m in models)
         ta, tb = (o.state_dict()["trace"] for o in opts)
-        res[f"{net}/resumed"] = np.array(
+        res[f"{key}/resumed"] = np.array(
             all(torch.equal(a[k], b[k]) for k in a)
             and all(torch.equal(ta[k], tb[k]) for k in ta))
     return res

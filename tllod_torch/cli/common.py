@@ -90,7 +90,9 @@ def build_train_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--lr_decay_gamma", default=0.1, type=float)
     p.add_argument("--lamda", default=0.1, type=float)
     p.add_argument("--s", dest="session", default=1, type=int)
-    p.add_argument("--r", dest="resume", default=False, type=bool)
+    p.add_argument("--r", dest="resume", default=False, type=bool,
+                   help="resume from <method>_<checksession>_<checkepoch>_"
+                        "<checkpoint>.pth, or .npz where there is no .pth")
     p.add_argument("--checksession", default=1, type=int)
     p.add_argument("--checkepoch", default=1, type=int)
     p.add_argument("--checkpoint", default=0, type=int)
@@ -304,9 +306,10 @@ def build_test_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--net", default="vgg16", type=str)
     p.add_argument("--cfg", dest="cfg_file", default=None, type=str)
     p.add_argument("--load_name", default=None, type=str, required=False,
-                   help="weights to evaluate: a tllod_torch state dict "
-                        "(.pt) or an .npz of flattened JAX params "
-                        "('backbone/conv1_1/kernel', ...)")
+                   help="weights to evaluate: a train checkpoint (.pth, "
+                        "or .npz of the interchange layout), a tllod_torch "
+                        "state dict (.pt) or an .npz of flattened JAX "
+                        "params ('backbone/conv1_1/kernel', ...)")
     p.add_argument("--model_dir", default=None, type=str,
                    help="alias of --load_name")
     p.add_argument("--cuda", action="store_true",

@@ -118,6 +118,20 @@ def run_da_training(method_name: str, model_ctor: Callable,
                       meta=meta)
 
 
+def resume_path(output_dir: str, name: str) -> str:
+    """The checkpoint ``--r`` resumes from: ``name`` under ``output_dir``
+    as given where it ends in ``.pth`` or ``.npz``, else ``name.pth``, or
+    ``name.npz`` (the interchange layout, :mod:`tllod_torch.utils.
+    checkpoint`) where there is no ``.pth``."""
+    if name.endswith((".pth", ".npz")):
+        return os.path.join(output_dir, name)
+    paths = [os.path.join(output_dir, name + ext) for ext in (".pth", ".npz")]
+    for path in paths:
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no checkpoint {paths[0]} nor {paths[1]}")
+
+
 def train_loop(method_name: str, model, loss_fn: Callable,
                loaders: Sequence[DetectionLoader], step_args: Callable,
                args, cfg, *, meta: Optional[dict] = None,
@@ -126,8 +140,9 @@ def train_loop(method_name: str, model, loss_fn: Callable,
     """The epoch loop every train CLI runs: ``min(len(loader))`` steps an
     epoch, each ``train_step`` on ``step_args(*batches)``, one device batch
     from each loader; the reference SGD from ``args``; ``--r`` resume, from
-    ``args.loadname`` under the output dir when it is given (``.pth``
-    added), else ``<method>_<checksession>_<checkepoch>_<checkpoint>.pth``;
+    ``args.loadname`` under the output dir when it is given, else
+    ``<method>_<checksession>_<checkepoch>_<checkpoint>``, a ``.pth`` or an
+    ``.npz`` (:func:`resume_path`);
     a checkpoint every ``--save_epoch_interval`` epochs and at the end.
     ``epoch_batches(epoch, batches)``, called on each step's host batches
     before they go to the device, adds per-epoch fields to them (MAD's
@@ -145,12 +160,9 @@ def train_loop(method_name: str, model, loss_fn: Callable,
     os.makedirs(output_dir, exist_ok=True)
     step = 0
     if args.resume:
-        name = getattr(args, "loadname", None)
-        if name and not name.endswith(".pth"):
-            name += ".pth"
-        path = os.path.join(output_dir, name or (
+        path = resume_path(output_dir, getattr(args, "loadname", None) or (
             f"{method_name}_{args.checksession}_{args.checkepoch}_"
-            f"{args.checkpoint}.pth"))
+            f"{args.checkpoint}"))
         ckpt_epoch, step = resume_train_state(model, opt, path)
         args.start_epoch = ckpt_epoch + 1
         print(f"resumed from {path} (epoch {ckpt_epoch}, step {step})")

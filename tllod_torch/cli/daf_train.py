@@ -12,7 +12,10 @@ backward and the SGD update on the card (``--device cpu`` runs the plain
 versions of the kernels). The backbone and box head start from
 ``vgg16_caffe.pth`` under ``$TLLOD_PRETRAINED_DIR`` when the file is there,
 else from random weights seeded with ``cfg.RNG_SEED``. Checkpoints go to
-``<save_dir>/<net>/<dataset>/daf_<session>_<epoch>_<step>.pth``.
+``<save_dir>/<net>/<dataset>/daf_<session>_<epoch>_<step>.pth``; ``--r``
+resumes from that name as a ``.pth`` or, where there is none, as an
+``.npz`` of the interchange layout (a JAX checkpoint through ``tools/
+jax_checkpoint.py to-npz``).
 """
 
 from __future__ import annotations

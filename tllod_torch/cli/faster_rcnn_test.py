@@ -11,9 +11,11 @@
 (``faster_rcnn_train``, ``daf_train``, ``maf_train``, ``atf_train``,
 ``pt_maf_train``, ``pa_atf_train``, ``us_daf_train``; ``.pth``,
 whose ``detector`` subset is loaded, as ``methods/da_runner.py:210-211``
-does), or an ``.npz``
-of flattened JAX params whose keys are the flax paths
-(``backbone/conv1_1/kernel``, ...); method-only subtrees are dropped.
+does), a train checkpoint in the ``.npz`` interchange layout
+(:mod:`tllod_torch.utils.checkpoint`; ``tools/jax_checkpoint.py to-npz``
+writes one from a JAX checkpoint), whose ``detector`` subset is loaded
+too, or an ``.npz`` of flattened JAX params whose keys are the flax paths
+(``backbone/conv1_1/kernel``, ..., or ``detector/backbone/...``).
 """
 
 from __future__ import annotations
@@ -21,26 +23,20 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
 
 from tllod_torch.cli.common import (DATASET_MAP, build_test_parser,
                                     resolve_config, setup_parallel)
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.eval_engine import evaluate_model
 from tllod_torch.models.faster_rcnn import FasterRCNN
-from tllod_torch.utils.checkpoint import detector_params
-from tllod_torch.zoo import load_jax_params
+from tllod_torch.utils.checkpoint import (detector_params, load_exact,
+                                          load_params)
 
 
 def load_weights(model: FasterRCNN, path: str) -> None:
-    if path.endswith(".npz"):
-        with np.load(path) as z:
-            load_jax_params(model, {k: z[k] for k in z.files})
-        return
-    sd = torch.load(path, map_location=model.device, weights_only=True)
-    if "params" in sd:            # a train checkpoint: its detector subset
-        sd = detector_params(sd["params"])
-    model.load_state_dict(sd, strict=True)
+    """Load the detector subset of ``path`` (any file the module docstring
+    lists) into ``model``; a name or shape that does not match raises."""
+    load_exact(model, detector_params(load_params(path, model.device)))
 
 
 def evaluate_split(args, split: str) -> dict:

@@ -11,8 +11,9 @@ annotation per image with its detections at or above ``--threshold``
 
 ``--part`` ``train_t`` reads the dataset's ``t_imdb``, ``test_t`` its
 ``t_test``, ``test_s`` its ``s_test``. ``--load_name`` takes what
-``faster_rcnn_test`` takes (a train checkpoint's detector subset, a state
-dict or an ``.npz``). Boxes go out 1-based; each file names the image and
+``faster_rcnn_test`` takes (a train checkpoint's detector subset, a
+``.pth`` or an ``.npz`` of the interchange layout; a state dict; or a
+params-only ``.npz``). Boxes go out 1-based; each file names the image and
 its size, which the roidb entry gives (its XML's ``size``, or the image
 file's). The default ``--out_dir`` is ``Annotations_pseudo`` beside the
 dataset's ``Annotations``, where ``idf_train --t_annotations`` reads.

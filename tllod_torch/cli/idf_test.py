@@ -10,9 +10,10 @@ attended invariant map (:class:`tllod_torch.methods.idf.IDFInfer`).
 ``--part test_s`` evaluates the dataset's ``s_test`` split and any other
 part its ``t_test``: IDF's own map, which has no ``test_all``.
 ``--load_name`` takes an ``idf_train`` checkpoint (``.pth``), a port
-state dict of the whole model (``.pt``), or an ``.npz`` of the JAX model's
-flattened params (``detector/backbone/conv1_1/kernel``, ...,
-``backbone_b/...``). ``--gamma`` and ``--eta`` are accepted as JAX's
+state dict of the whole model (``.pt``), a checkpoint in the ``.npz``
+interchange layout (:mod:`tllod_torch.utils.checkpoint`), or an ``.npz``
+of the JAX model's flattened params (``detector/backbone/conv1_1/kernel``,
+..., ``backbone_b/...``). ``--gamma`` and ``--eta`` are accepted as JAX's
 script takes them; the eval forward reads neither.
 """
 
@@ -21,23 +22,17 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import torch
 
 from tllod_torch.cli.common import (DATASET_MAP, build_test_parser,
                                     resolve_config, setup_parallel)
 from tllod_torch.data.roidb import combined_roidb
 from tllod_torch.eval_engine import evaluate_model
 from tllod_torch.methods.idf import IDFInfer, IDFModel
-from tllod_torch.zoo import load_jax_params
+from tllod_torch.utils.checkpoint import load_exact, load_params
 
 
 def load_idf_weights(model: IDFModel, path: str) -> None:
-    if path.endswith(".npz"):
-        with np.load(path) as z:
-            load_jax_params(model, {k: z[k] for k in z.files})
-        return
-    sd = torch.load(path, map_location=model.device, weights_only=True)
-    model.load_state_dict(sd.get("params", sd), strict=True)
+    load_exact(model, load_params(path, model.device))
 
 
 def main(argv=None) -> dict:

@@ -17,7 +17,9 @@ outright. The s1 loader has domain 1 and seed ``RNG_SEED``, the s2 loader
 domain 0 and seed ``RNG_SEED + 7``; each s1 batch carries the epoch as a
 float32 ``(B,)`` array, the weight :func:`tllod_torch.methods.mad.mad_loss`
 ramps on. Checkpoints are ``mad_<session>_<epoch>_<step>.pth``; ``--r``
-resumes from ``--loadname`` under the output dir when it is given.
+resumes from ``--loadname`` under the output dir when it is given (a
+``.pth``, or an ``.npz`` of the interchange layout that ``tools/
+jax_checkpoint.py to-npz`` writes from a JAX checkpoint).
 ``--bf16`` is accepted and the model trains in float32: the JAX
 script builds its model without a ``dtype`` (``MAD_train.py``).
 """
@@ -48,7 +50,7 @@ def build_parser():
     parser.add_argument("--DataYear", default="2007", type=str)
     parser.add_argument("--loadname", default=None, type=str,
                         help="with --r: the checkpoint's file name under "
-                             "the output dir")
+                             "the output dir (.pth or .npz)")
     parser.add_argument("--log_flag", action="store_true",
                         help="alias of --use_tfb")
     parser.add_argument("--mode", default="train_model",

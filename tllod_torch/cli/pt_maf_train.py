@@ -8,8 +8,10 @@ from a frozen source-only teacher.
         [--max_steps N] [--device cpu]
 
 ``--teacher_ckpt`` takes a port checkpoint (``.pth``, its ``detector``
-subset), a port state dict (``.pt``) or an ``.npz`` of flattened JAX
-params, as :mod:`tllod_torch.cli.faster_rcnn_test` does.
+subset), a JAX checkpoint brought over as an ``.npz`` of the interchange
+layout (``tools/jax_checkpoint.py to-npz``; its ``detector`` subset), a
+port state dict (``.pt``) or an ``.npz`` of flattened JAX params, as
+:mod:`tllod_torch.cli.faster_rcnn_test` does.
 ``--allow_untrained_teacher`` distils from a copy of the student's initial
 detector instead; one of the two is required. ``--alpha/--beta/--gamma``
 are parsed and, as in the JAX package, reach nothing: the level weights

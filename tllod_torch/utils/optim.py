@@ -130,6 +130,7 @@ class _Chain(torch.optim.Optimizer):
                          {"lr": learning_rate(0)})
         self.learning_rate = learning_rate
         self.clip_norm = clip_norm
+        self.weight_decay, self.double_bias = weight_decay, double_bias
         self.count = 0
         # each group's −lr·scale, on its parameters' device
         self.rates = [torch.zeros((), device=g["params"][0].device)
@@ -211,6 +212,16 @@ class _Chain(torch.optim.Optimizer):
             if unknown:
                 raise KeyError(f"optimizer state names parameters this "
                                f"model does not train: {unknown[:5]}")
+            missing = [n for n in params if n not in state[key]]
+            if missing:
+                raise KeyError(f"optimizer state has no {key} for "
+                               f"{missing[0]}")
+            for n, t in state[key].items():
+                buf = self.state[params[n]][key]
+                if t.shape != buf.shape:
+                    raise ValueError(f"{key} of {n} has shape "
+                                     f"{tuple(t.shape)}, the parameter "
+                                     f"{tuple(buf.shape)}")
             for n, t in state[key].items():    # in place: a graph reads it
                 self.state[params[n]][key].copy_(t)
         self.count = int(state["count"])

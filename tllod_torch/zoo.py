@@ -9,7 +9,11 @@ flax tree:
   dense kernel (I, O)         → weight (O, I)
   bias                        → bias
 
-Reading an orbax checkpoint needs JAX, so weights cross as numpy arrays.
+Reading an orbax checkpoint needs JAX, so weights cross as numpy arrays
+(:mod:`tllod_torch.utils.checkpoint` has the ``.npz`` layout).
+:func:`to_jax_params` is the inverse map, for the way back; both apply to
+an optimizer's per-parameter state as well (a trace or moment of a
+``kernel`` is laid out as the kernel is).
 A method's tree (``detector/…``, ``img_da/…``, ``ins_da/…``; PA-ATF's
 ``img_da3/mask_conv1/…``, ``club3/fc/…``) maps onto the method module the
 same way. A dense kernel is only transposed: the port's heads flatten in
@@ -154,24 +158,58 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def from_jax_params(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """flax params (nested or ``/``-flattened) → ``state_dict`` tensors."""
+def from_jax_params(tree: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """flax params (nested or ``/``-flattened) → ``state_dict`` tensors,
+    on the CPU or ``device`` (where the transposes then run)."""
     sd: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(tree).items():
         *mods, leaf = path.split("/")
+        # a kernel's transpose copies it; any other leaf is copied here
+        t = torch.from_numpy(
+            val if leaf == "kernel" and val.flags.writeable
+            and val.ndim in (2, 4) else np.array(val))
+        if device is not None:
+            t = t.to(device)
         if leaf == "kernel":
-            if val.ndim == 4:
-                val = val.transpose(3, 2, 0, 1)
-            elif val.ndim == 2:
-                val = val.T
+            if t.ndim == 4:
+                t = t.permute(3, 2, 0, 1)
+            elif t.ndim == 2:
+                t = t.t()
             else:
                 raise ValueError(f"unexpected kernel rank at {path}: "
-                                 f"{val.shape}")
-            leaf = "weight"
+                                 f"{tuple(t.shape)}")
+            t, leaf = t.clone(memory_format=torch.contiguous_format), "weight"
         elif leaf not in ("bias", "scale", "mean", "var"):
             raise ValueError(f"no counterpart for flax leaf {path}")
-        sd[".".join(mods + [leaf])] = torch.from_numpy(np.array(val))
+        sd[".".join(mods + [leaf])] = t
     return sd
+
+
+def to_jax_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """``state_dict`` tensors → flax paths (``/``-joined) of numpy arrays in
+    JAX's layout: the inverse of :func:`from_jax_params`, each transpose
+    taken on the tensor's device. bfloat16 tensors come out as float32,
+    which holds them exactly. An array that needs no transpose may share
+    memory with a CPU tensor."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, t in sd.items():
+        *mods, leaf = name.split(".")
+        t = t.detach()
+        if leaf == "weight":
+            if t.ndim == 4:
+                t = t.permute(2, 3, 1, 0)
+            elif t.ndim == 2:
+                t = t.t()
+            else:
+                raise ValueError(f"unexpected weight rank at {name}: "
+                                 f"{tuple(t.shape)}")
+            leaf = "kernel"
+        elif leaf not in ("bias", "scale", "mean", "var"):
+            raise ValueError(f"no flax counterpart for {name}")
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        flat["/".join(mods + [leaf])] = t.contiguous().cpu().numpy()
+    return flat
 
 
 def load_jax_params(model: nn.Module, tree: Mapping) -> nn.Module:
