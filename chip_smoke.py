@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, drive, check.
 
     python3 chip_smoke.py [--seed 0] [--out output/chip_smoke]
-    python3 chip_smoke.py --only optim|crop|coco|parallel   # one phase
+    python3 chip_smoke.py --only optim|crop|coco|parallel|axes   # one phase
     python3 chip_smoke.py --only parallel-perturbed  # 5h (b) must fail
     python3 chip_smoke.py --only optim-perturbed  # 5f's [interchange] must fail
 
@@ -256,6 +256,22 @@ Phases, each ending the run nonzero on failure:
    a batch-2 map, maps of two rows and of two columns and the map cut to
    C = 509, checked at both modes and at the grid's extremes (G = 2 and 3
    with the max, 31 and 32 without).
+   5j. ``[axes]``: the configurations the port accepts that no earlier
+   phase drives, through ``train_phase`` in its lean form (2 warm-up and
+   3 timed steps, one profiled step, no ``fused_phase``): MAF, PT-MAF
+   (its teacher at res101 too) and MAD at ``--net res101`` on
+   ``cfgs/res101.yml`` with the cityscape set_cfgs, Cityscapes' 9
+   classes, a 600x1200 pair, ``calibrate_stem``, lr 0.001 (128 sampled
+   source RoIs and 300 target proposals on the 1x38x75x1024 map; MAD's two
+   views 128 each, resized to 40x76); then MAF, PT-MAF, PA-ATF, MAD and
+   IDF at ``Config()``'s crop (G = 14 and the max), full VGG16 width. Each
+   with one card-vs-CPU pair at the method's limits (the pair also counts
+   the crop max windows the two sides settle apart), launch counts exact,
+   every RoIAlignAvg, RoICrop, RoIPool and proposal-NMS launch of the step
+   held to its plain version on its own tensors (crop and align forward
+   ``torch.equal``, backward within 1e-5; NMS exact against the plain
+   version and ``nms_numpy``) and timed; ms/step, busy ms and peak
+   memory, and the phase's seconds in a ``[time]`` line.
    Prints one ``{"kernels": [...]}`` line with times and bounds of every
    kernel at every shape.
 6. Prints the card's ``nvidia-smi`` name and power limit, then the last
@@ -309,8 +325,8 @@ VGG16_CITYSCAPE = VGG16_YML + [
 ]
 CLASSES = ("__background__", "person", "rider", "car", "truck", "bus",
            "train", "motorcycle", "bicycle")
-# cfgs/res101.yml and the voc_clipart dataset set_cfgs, as KEY VALUE pairs
-RES101_VOC_CLIPART = [
+# cfgs/res101.yml, as KEY VALUE pairs
+RES101_YML = [
     "EXP_DIR", "res101",
     "TRAIN.HAS_RPN", "True",
     "TRAIN.BBOX_NORMALIZE_TARGETS_PRECOMPUTED", "True",
@@ -327,10 +343,15 @@ RES101_VOC_CLIPART = [
     "POOLING_SIZE", "7",
     "POOLING_MODE", "align",
     "CROP_RESIZE_WITH_MAX_POOL", "False",
+]
+# and the voc_clipart dataset set_cfgs (US-DAF's setting)
+RES101_VOC_CLIPART = RES101_YML + [
     "ANCHOR_SCALES", "[4,8,16,32]",
     "ANCHOR_RATIOS", "[0.5,1,2]",
     "MAX_NUM_GT_BOXES", "50",
 ]
+# and the cityscape dataset set_cfgs (the same keys and values)
+RES101_CITYSCAPE = RES101_YML + VGG16_CITYSCAPE[len(VGG16_YML):]
 # the US-DAF source classes (VOC: 5 private + 10 common), data/voc.py
 VOC_CLIPART_CLASSES = ("__background__", "aeroplane", "bicycle", "bird",
                        "boat", "bottle", "bus", "car", "cat", "chair", "cow",
@@ -511,11 +532,11 @@ def main() -> int:
                                                   "chip_smoke"),
                     help="directory for the kernels JSON and the trace")
     ap.add_argument("--only", choices=("optim", "crop", "coco", "parallel",
-                                       "parallel-perturbed",
+                                       "axes", "parallel-perturbed",
                                        "optim-perturbed"),
-                    help="build the kernels, then run phase 5f, 5i, 4c or "
-                         "5h's (b)-(d) alone and print its summary; no other "
-                         "phase and no ok line. crop also keeps each train "
+                    help="build the kernels, then run phase 5f, 5i, 4c, "
+                         "5h's (b)-(d) or 5j alone and print its summary; no "
+                         "other phase and no ok line. crop also keeps each train "
                          "site's crop tensors under OUT/crop_sites, for "
                          "roi_pool_ab.py --op crop --sites; "
                          "parallel-perturbed runs (b) with fc6's replayed "
@@ -574,6 +595,11 @@ def main() -> int:
         out = crop_phase(args.seed, *make_images(
             N_IMAGES, args.seed, cfg.PIXEL_MEANS), args.out)[1]
         log("[crop] alone: " + json.dumps(out, default=str))
+        return 0
+    if args.only == "axes":
+        entries, out = axes_phase(args.seed, args.out)
+        log(json.dumps({"kernels": entries}))
+        log("[axes] alone: " + json.dumps({"phase_s": out["phase_s"]}))
         return 0
     if args.only == "coco":
         entries, out = coco_phase(args.seed, args.out)
@@ -712,6 +738,10 @@ def main() -> int:
     # ---- 5i. [crop]: POOLING_MODE='crop', the RoICrop kernels ----
     crop_kernels, crop = crop_phase(args.seed, ims, info, roidb, args.out)
     kernels += crop_kernels
+    mark("5i crop")
+    # ---- 5j. [axes]: MAF, PT-MAF, MAD at res101; five methods at crop ----
+    axes_kernels, axes = axes_phase(args.seed, args.out)
+    kernels += axes_kernels
 
     log("[fused] summary: " + "; ".join(
         f"{name} eager {f['eager_ms_median']:.3f} graph "
@@ -744,10 +774,11 @@ def main() -> int:
                    "faster_rcnn": supervised, "idf_eval": idf_eval,
                    "nms_adversarial": adversarial, "bf16": bf16,
                    "optim": optim, "overfit": overfit,
-                   "parallel": parallel, "crop": crop}, f, indent=1)
+                   "parallel": parallel, "crop": crop, "axes": axes}, f,
+                  indent=1)
     log(json.dumps({"kernels": kernels}))
 
-    mark("5i crop")
+    mark("5j axes")
     # ---- 6. card ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1673,18 +1704,23 @@ def _sampled_proposal_check(model, cfg, seed=7):
 
 def _nms_check(label, boxes, scores, kw):
     """The kernel's selections against the plain version and nms_numpy,
-    exact; returns them on the host."""
+    exact; returns them on the host and the plain call's ms (CUDA events
+    around it)."""
     from tllod_torch.ops.nms import nms_fixed_batched, nms_fixed_plain
 
     idx, num = nms_fixed_batched(boxes, scores, **kw)
-    pidx, pnum = nms_fixed_plain(boxes, scores, **kw)
+    plain = []
+    p_ms = cuda_ms(lambda: plain.append(nms_fixed_plain(boxes, scores,
+                                                        **kw)),
+                   reps=1, warmup=0)
+    pidx, pnum = plain[0]
     idx_h, num_h = idx.cpu().numpy(), num.cpu().numpy()
     if not (np.array_equal(idx_h, pidx.cpu().numpy())
             and np.array_equal(num_h, pnum.cpu().numpy())):
         raise RuntimeError(f"nms {label}: kernel and plain disagree")
     _nms_numpy_check(boxes, scores, kw["iou_threshold"], kw["max_output"],
                      kw.get("presorted", False), idx_h, num_h)
-    return idx_h, num_h
+    return idx_h, num_h, p_ms
 
 
 def _nms_stages(boxes, scores, kw, positions, want):
@@ -1751,14 +1787,12 @@ def _nms_stages(boxes, scores, kw, positions, want):
 
 
 def _nms_entry(label, boxes, scores, kw, launches):
-    from tllod_torch.ops.nms import nms_fixed_batched, nms_fixed_plain
+    from tllod_torch.ops.nms import nms_fixed_batched
 
     thr, mo = kw["iou_threshold"], kw["max_output"]
     pre = kw.get("presorted", False)
-    idx_h, num_h = _nms_check(label, boxes, scores, kw)
+    idx_h, num_h, p_ms = _nms_check(label, boxes, scores, kw)
     k_ms = cuda_ms(lambda: nms_fixed_batched(boxes, scores, **kw), reps=20)
-    p_ms = cuda_ms(lambda: nms_fixed_plain(boxes, scores, **kw), reps=1,
-                   warmup=0)
     pn, n = scores.shape
     positions = _kept_positions(scores, idx_h, num_h, pre)
     stage_ms, stage_bound = _nms_stages(boxes, scores, kw, positions,
@@ -1859,7 +1893,7 @@ def _nms_adversarial():
     for label, boxes, scores, kw in cases:
         bt = torch.from_numpy(np.ascontiguousarray(boxes)).cuda()
         st = torch.from_numpy(np.ascontiguousarray(scores, np.float32)).cuda()
-        idx_h, num_h = _nms_check(label, bt, st, kw)
+        idx_h, num_h, _ = _nms_check(label, bt, st, kw)
         n = scores.shape[1]
         positions = _kept_positions(st, idx_h, num_h,
                                     kw.get("presorted", False))
@@ -2122,8 +2156,9 @@ def _device_events(prof):
 
 def _device_breakdown(prof, wall_ms, label, trace_path):
     """Print the device's busy share of a profiled window and its time by
-    kernel name and by kind (``_device_events``); write the chrome trace.
-    Returns (busy_ms, top rows, ms by kind)."""
+    kernel name and by kind (``_device_events``); write the chrome trace
+    (unless ``trace_path`` is None). Returns (busy_ms, top rows, ms by
+    kind)."""
     busy, n_events, ranked, kinds = _device_events(prof)
     log(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
@@ -2138,7 +2173,8 @@ def _device_breakdown(prof, wall_ms, label, trace_path):
                          or "roi_pool" in kv[0] or "roi_crop" in kv[0]]
     for name, (ms, n) in top:
         log(f"[profile] {ms:9.3f} ms {n:5d}x {name[:90]}")
-    prof.export_chrome_trace(trace_path)
+    if trace_path is not None:
+        prof.export_chrome_trace(trace_path)
     return busy, [(name, ms, n) for name, (ms, n) in top], kinds
 
 
@@ -2432,15 +2468,18 @@ def phase_optimizer(spec, cfg, model, optimizer="sgd"):
                                else torch.float32), **common)
 
 
-def train_phase(spec, cfg, seed, out_dir):
+def train_phase(spec, cfg, seed, out_dir, lean=False):
     """Full-width train steps of the method ``spec`` at ``spec.train_hw``
     through ``train_step``; both kernels of the config's pooling op
     (RoIAlignAvg's, or RoICrop's at ``POOLING_MODE='crop'``) and the
     proposal NMS held to their plain versions on the step's own tensors;
     one step card vs CPU on each of ``spec.ref_pairs`` noise pairs; a
     profile of one step; ``fused_phase``. ``cfg`` is phase 2's, unless
-    ``spec.cfg_pairs`` gives the method's own. Returns (kernel entries,
-    summary)."""
+    ``spec.cfg_pairs`` gives the method's own. ``lean`` (phase 5j) times
+    AXES_STEPS steps, profiles one without writing its trace or reading
+    its copies and convolutions, holds the proposal NMS at crop too, and
+    runs neither PA-ATF's sampled proposal check nor ``fused_phase``.
+    Returns (kernel entries, summary)."""
     import torch
     from tllod_torch.config import Config, cfg_from_list
     from tllod_torch.ops import _kernels
@@ -2461,8 +2500,10 @@ def train_phase(spec, cfg, seed, out_dir):
                                            cfg, dev, nc))
     tgt = make_train_batch(*spec.train_hw, 0, seed + 11, cfg, dev, nc)
     if spec.net.startswith("res"):
-        calibrate_stem(model.detector, src["im_data"])
+        for det in (model.detector, *extra):     # PT-MAF's teacher too
+            calibrate_stem(det, src["im_data"])
     opt = phase_optimizer(spec, cfg, model)
+    n_steps = AXES_STEPS if lean else TRAIN_STEPS
     n_params = sum(p.numel() for p in model.parameters())
     n_train = sum(p.numel() for p in opt.named_params().values())
     t = cfg.TRAIN
@@ -2509,7 +2550,7 @@ def train_phase(spec, cfg, seed, out_dir):
     _kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()      # phase 4's NMS scratch aside
     times, metrics = [], []
-    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + n_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = step(i)
@@ -2528,10 +2569,10 @@ def train_phase(spec, cfg, seed, out_dir):
                 "nms": len(spec.nms_sites),
                 "roi_pool": len(spec.pool_sites),
                 "roi_pool_backward": len(spec.pool_sites)}
-    want = {k: n * TRAIN_STEPS for k, n in per_step.items() if n}
+    want = {k: n * n_steps for k, n in per_step.items() if n}
     if {k: n for k, n in launches.items() if n} != want:
         raise RuntimeError(f"{spec.name} train path launched {launches} in "
-                           f"{TRAIN_STEPS} steps, {want} expected")
+                           f"{n_steps} steps, {want} expected")
     for i, m in enumerate(metrics):
         vals = {k: float(v) for k, v in m.items()}
         if set(vals) != set(spec.loss_keys) | {"loss", "fg_cnt"}:
@@ -2547,27 +2588,39 @@ def train_phase(spec, cfg, seed, out_dir):
                 for label, keys in groups)
             + f" | loss {vals['loss']:.5f}, fg_cnt {vals['fg_cnt']:.0f}")
     ms = float(np.median(times))
-    log(f"[{tag}] {ms:.3f} ms/step (median of {TRAIN_STEPS} steps), "
+    log(f"[{tag}] {ms:.3f} ms/step (median of {n_steps} steps), "
         f"{2000.0 / ms:.2f} images/s (2 per step), peak memory "
         f"{peak:.2f} GiB ({held:.2f} GiB held before the phase)")
 
-    busy, wall, top, kinds, copies, pool_copies = _profile_train_step(
-        step, TRAIN_WARMUP + TRAIN_STEPS, out_dir, cfg.POOLING_SIZE,
-        model.detector.dout_base_model, spec,
-        cfg.MAX_NUM_GT_BOXES * src["gt_boxes"].shape[0],
-        suffix="" if pool_op == "roi_align_avg" else "_crop")
+    if lean:
+        steps = iter((TRAIN_WARMUP + n_steps, TRAIN_WARMUP + n_steps + 1))
+        prof, wall = _traced(lambda: step(next(steps)))
+        busy, top, kinds = _device_breakdown(prof, wall,
+                                             f"{tag} train step", None)
+        copies, pool_copies = [], []
+    else:
+        busy, wall, top, kinds, copies, pool_copies = _profile_train_step(
+            step, TRAIN_WARMUP + n_steps, out_dir, cfg.POOLING_SIZE,
+            model.detector.dout_base_model, spec,
+            cfg.MAX_NUM_GT_BOXES * src["gt_boxes"].shape[0],
+            suffix="" if pool_op == "roi_align_avg" else "_crop")
     torch.backends.cudnn.allow_tf32 = False
     log(f"[{tag}] cudnn.allow_tf32=False for the checks")
     calls, nms_calls, pool_calls = _capture_train(spec, model, extra, src,
                                                   tgt, pool_op)
-    entries = _backward_parity(spec, calls, launches, op=pool_op)
+    # phase 5j's rows carry their run's tag, phase 5's the method's name
+    name = tag if lean else spec.name
+    entries = _backward_parity(spec, calls, launches, op=pool_op,
+                               prefix=name)
     copy_ms = sum(ms for _, _, ms in copies)
     for e in entries:
         e["layout_copy_ms"] = copy_ms
-    prefix = "train" if spec.name == "daf" else f"{spec.name} train"
+    prefix = "train" if name == "daf" else f"{name} train"
     # the proposal problems do not depend on the pooling: held at align
+    # (and at every step of phase 5j)
     for site, (boxes, scores, kw) in zip(
-            spec.nms_sites if pool_op == "roi_align_avg" else (), nms_calls):
+            spec.nms_sites if pool_op == "roi_align_avg" or lean else (),
+            nms_calls):
         entries.append(_nms_entry(f"{prefix} {site}", boxes, scores, kw,
                                   launches.get("nms", 0)))
     pool_copy_ms = sum(ms for _, _, ms in pool_copies)
@@ -2580,9 +2633,24 @@ def train_phase(spec, cfg, seed, out_dir):
                                            launches["roi_pool_backward"])):
             e["layout_copy_ms"] = pool_copy_ms
             entries.append(e)
-    sampled = (_sampled_proposal_check(model, cfg) if spec.pool_sites
-               else None)
-    fused = fused_phase(
+    # PA-ATF's sampled proposal layer does not depend on the pooling or
+    # the net: held in phase 5
+    sampled = (_sampled_proposal_check(model, cfg)
+               if spec.pool_sites and not lean else None)
+    summary = {"ms_per_step": ms, "step_ms": times,
+               "images_per_s": 2000.0 / ms, "busy_ms": busy,
+               "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
+               "peak_memory_gib": peak, "held_before_gib": held,
+               "launches": launches, "card_vs_cpu": ref_errs,
+               "top_kernels": top, "layout_copy_ms": copy_ms,
+               "layout_copies": copies}
+    if spec.pool_sites:
+        summary.update(roi_pool_copy_ms=pool_copy_ms,
+                       roi_pool_copies=pool_copies,
+                       sampled_proposals=sampled)
+    if lean:
+        return entries, summary
+    summary["fused"] = fused_phase(
         tag, model, spec.loss, opt, lambda i: (
             spec.add_fields(make_train_batch(*spec.train_hw, 1,
                                              seed + 20 + 2 * i, cfg, dev,
@@ -2590,17 +2658,6 @@ def train_phase(spec, cfg, seed, out_dir):
             make_train_batch(*spec.train_hw, 0, seed + 21 + 2 * i, cfg, dev,
                              nc), *extra),
         {k: n for k, n in per_step.items() if n}, seed, out_dir)
-    summary = {"ms_per_step": ms, "step_ms": times,
-               "images_per_s": 2000.0 / ms, "busy_ms": busy,
-               "profiled_wall_ms": wall, "busy_ms_by_kind": kinds,
-               "peak_memory_gib": peak, "held_before_gib": held,
-               "launches": launches, "card_vs_cpu": ref_errs,
-               "top_kernels": top, "layout_copy_ms": copy_ms,
-               "layout_copies": copies, "fused": fused}
-    if spec.pool_sites:
-        summary.update(roi_pool_copy_ms=pool_copy_ms,
-                       roi_pool_copies=pool_copies,
-                       sampled_proposals=sampled)
     return entries, summary
 
 
@@ -2985,12 +3042,14 @@ def _backward_entry(label, feat, rois, grad, kw, dtype, launches,
     return e
 
 
-def _backward_parity(spec, calls, launches, bf16=False, op="roi_align_avg"):
+def _backward_parity(spec, calls, launches, bf16=False, op="roi_align_avg",
+                     prefix=None):
     """Both pooling kernels of ``op`` (RoIAlignAvg's or RoICrop's) on the
     train path's own tensors (maps of the step's type: float32, or bfloat16
     under ``bf16``), each with its launch count from the timed steps: the
     forward at every site, the backward where a gradient reached the
-    output (not the teacher's)."""
+    output (not the teacher's). ``prefix`` heads RoIAlignAvg's labels
+    (default: the method's name)."""
     if op == "roi_crop":
         if CROP_SITES:
             import torch
@@ -3005,17 +3064,18 @@ def _backward_parity(spec, calls, launches, bf16=False, op="roi_align_avg"):
                     f"{spec.tag} {site}", rec["feat"], rec["rois"],
                     rec["kw"], launches, grad=rec.get("grad"),
                     dtypes=(rec["feat"].dtype,), tag=spec.tag)]
-    prefix = "train" if spec.name == "daf" else f"{spec.name} train"
+    name = prefix or spec.name
     entries = []
     for site, rec in zip(spec.roi_sites, calls):
         dt = rec["feat"].dtype
         entries.append(_roi_align_entry(
             rec["feat"], rec["rois"], rec["kw"], dt,
             launches.get("roi_align_avg", 0),
-            label=("bf16 " if bf16 else "") + f"{prefix} {site}"))
+            label=("bf16 " if bf16 else "")
+            + ("train" if name == "daf" else f"{name} train") + f" {site}"))
         if "grad" not in rec:
             continue
-        label = site if spec.name == "daf" else f"{spec.name} {site}"
+        label = site if name == "daf" else f"{name} {site}"
         entries.append(_backward_entry(
             ("bf16 " if bf16 else "") + label, rec["feat"],
             rec["rois"], rec["grad"], rec["kw"], dt,
@@ -3104,7 +3164,7 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
                 b["im_data"].device)
 
     proposals = []
-    saved = frcnn.proposal_layer
+    saved, saved_crop = frcnn.proposal_layer, frcnn.roi_crop
 
     def record(*a, **kw):
         res = saved(*a, **kw)
@@ -3113,6 +3173,11 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
 
     def replay(*a, **kw):
         return proposals.pop(0)
+
+    # each side's crop inputs, where the crop takes the 2x2 max: whose
+    # windows' decisions the two sides may settle apart
+    crops = {"card": [], "cpu": []}
+    max_crop = cfg.POOLING_MODE == "crop" and cfg.CROP_RESIZE_WITH_MAX_POOL
 
     outs, grads, recs = {}, {}, {}
     rng = StepRandom(seed, k, "cuda")
@@ -3126,12 +3191,19 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
                            replay=[u.cpu() for u in rng.drawn])
         recs[name], handles = _train_hooks(m, record_terms=name == "cpu")
         frcnn.proposal_layer = fn
+
+        def crop(feat, rois, _calls=crops[name], **kw):
+            _calls.append((feat.detach().float().cuda(), rois.cuda(), kw))
+            return saved_crop(feat, rois, **kw)
+        if max_crop:
+            frcnn.roi_crop = crop
         try:
             out = m(*batch, training=True, rng=r)
             loss = spec.loss(out)
             loss.backward()
         finally:
             frcnn.proposal_layer = saved
+            frcnn.roi_crop = saved_crop
             for h in handles:
                 h.remove()
         outs[name] = {key: out[key].item() for key in spec.loss_keys}
@@ -3196,6 +3268,8 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
     if not cancel:
         raise RuntimeError("train reference: no bias terms recorded")
     ranked = sorted(err.items(), key=lambda kv: -kv[1])
+    window_flips, windows, window_gap = _crop_window_flips(
+        crops["card"], crops["cpu"])
     reading = {
         "pair": k, "fg_cnt": outs["cpu"]["fg_cnt"],
         "loss_rel_err": max(d / max(abs(outs["cpu"][key]), 1e-6)
@@ -3207,7 +3281,8 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
         "max_cancel": max(cancel.items(), key=lambda kv: kv[1]),
         "relu_flips": relu_flips, "relu_units": relu_units,
         "clip_flips": clip_flips, "clip_rows": clip_rows,
-        "clip_rows_cpu": clip_cpu}
+        "clip_rows_cpu": clip_cpu, "crop_window_flips": window_flips,
+        "crop_windows": windows, "crop_window_min_gap": window_gap}
     log(f"[{spec.tag}-reference] pair {k} {hw[0]}x{hw[1]}, fg_cnt "
         f"{reading['fg_cnt']}: losses max rel err "
         f"{reading['loss_rel_err']:.3g}; gradients of {len(err)} "
@@ -3219,8 +3294,45 @@ def _train_reference_pair(spec, model, extra, cpu, cpu_extra, cfg, seed,
         + f"; most cancelling bias {reading['max_cancel'][0]} "
         f"{reading['max_cancel'][1]:.3g}; ReLU sign flips {relu_flips} of "
         f"{relu_units}; BCE clip crossings {clip_flips} of {clip_rows} rows "
-        f"({clip_cpu} clipped on the CPU)")
+        f"({clip_cpu} clipped on the CPU)"
+        + (f"; crop max windows settled apart {window_flips} of {windows} "
+           f"(smallest top-two gap on the CPU {window_gap:.3g} of its "
+           f"map's largest entry)" if windows else ""))
     return reading
+
+
+def _crop_window_flips(card, cpu):
+    """The crop's 2x2 max windows whose decision (the samples equal to the
+    window's max, which take its gradient) differs between the card's and
+    the CPU's crop inputs (map, RoIs, kw), call by call: (windows that
+    differ, windows, the smallest gap between a window's top two samples
+    on the CPU over its map's largest entry, among windows whose max is
+    positive)."""
+    import torch
+    from tllod_torch.ops.roi_crop import roi_crop_plain
+
+    flips = total = 0
+    gap = float("inf")
+    for (f_card, rois, kw), (f_cpu, _, _) in zip(card, cpu):
+        wins = []
+        for f in (f_card, f_cpu):
+            smp = roi_crop_plain(f, rois, grid_size=kw["grid_size"],
+                                 max_pool=False)
+            r, g, _, c = smp.shape
+            p = g // 2
+            wins.append(smp[:, :2 * p, :2 * p].reshape(
+                r, p, 2, p, 2, c).permute(0, 1, 3, 5, 2, 4).reshape(-1, 4))
+        ties = [w == w.amax(dim=1, keepdim=True) for w in wins]
+        flips += int((ties[0] != ties[1]).any(dim=1).sum())
+        total += wins[1].shape[0]
+        top = wins[1].topk(2, dim=1).values
+        top = top[top[:, 0] > 0]
+        scale = float(f_cpu.abs().max())
+        if len(top) and scale > 0:
+            gap = min(gap, float((top[:, 0] - top[:, 1]).min()) / scale)
+        del wins, ties, top
+    torch.cuda.empty_cache()
+    return flips, total, gap
 
 
 def check_train_reference(spec, model, extra, cfg, seed):
@@ -5866,6 +5978,50 @@ def crop_phase(seed, ims, info, roidb, out_dir):
     return entries, {"sets": sets, "eval": evals, "daf": train,
                      "atf": atf_train, "in_turns": turns, "us_daf": res,
                      "res101_eval": res_eval}
+
+
+# ---- [axes]: MAF, PT-MAF and MAD at res101; five methods at crop ----
+
+AXES_STEPS = 3              # timed steps a method in phase 5j
+# the methods phase 5j runs at --net res101 (JAX builds them on any
+# backbone) and at Config()'s crop (G = 14 and the 2x2 max)
+AXES_RES = ("maf", "pt_maf", "mad")
+AXES_CROP = ("maf", "pt_maf", "pa_atf", "mad", "idf")
+
+
+def axes_phase(seed, out_dir):
+    """Phase 5j (``[axes]``): ``train_phase`` in its lean form for MAF,
+    PT-MAF (a res101 teacher) and MAD at ``--net res101`` (Cityscapes'
+    9 classes, 600x1200, ``cfgs/res101.yml`` with the cityscape set_cfgs,
+    ``calibrate_stem``, lr 0.001, the res101 SGD), then for MAF, PT-MAF,
+    PA-ATF, MAD and IDF at ``Config()``'s crop, full VGG16 width: one
+    card-vs-CPU pair each at the method's limits, every pooling, RoIPool
+    and NMS launch of the step held to its plain version. Returns
+    (entries, summary)."""
+    import torch
+
+    t0 = time.perf_counter()
+    entries, summary = [], {}
+    runs = [(_method(name)._replace(
+        tag=f"res101-{name}", net="res101", cfg_pairs=tuple(RES101_CITYSCAPE),
+        lr=0.001, ref_pairs=1), None) for name in AXES_RES]
+    runs += [(_method(name)._replace(tag=f"crop-{name}", ref_pairs=1),
+              _crop_cfg(VGG16_CITYSCAPE, True)) for name in AXES_CROP]
+    for spec, cfg in runs:
+        t1 = time.perf_counter()
+        e, summary[spec.tag] = train_phase(spec, cfg, seed, out_dir,
+                                           lean=True)
+        summary[spec.tag]["phase_s"] = time.perf_counter() - t1
+        entries += e
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log("[axes] summary: " + "; ".join(
+        f"{tag} {v['ms_per_step']:.3f} ms/step, busy {v['busy_ms']:.3f} ms, "
+        f"peak {v['peak_memory_gib']:.2f} GiB, {v['phase_s']:.1f} s"
+        for tag, v in summary.items()) + f"; the phase {secs:.1f} s")
+    summary["phase_s"] = secs
+    log(f"[time] 5j axes took {secs:.1f} s")
+    return entries, summary
 
 
 # ---- [coco]: COCO-protocol eval at COCO's 81 classes ----

@@ -71,7 +71,8 @@ map gradient through it (CUDA events around 10 calls, host gaps included),
 ``--op align-rows``: the same checks and times (``--op align``'s keys),
 yardstick included, at the other main-path shapes of ``PERF.md``'s
 RoIAlignAvg rows (``ALIGN_ROWS``): eval batch 4, ATF's 2000 RoIs, the
-ResNet-101 eval and US-DAF train maps, the ``--bf16`` train sites, MAD's
+ResNet-101 eval and US-DAF train maps, MAF's, PT-MAF's and MAD's res101
+train map (128 and 300 RoIs), the ``--bf16`` train sites, MAD's
 and IDF's 256, the B = 2 train maps and the COCO eval map, each with RoIs
 drawn as ``--op pool``'s eval proposals on its image, the same count on
 every image of a batch, image by image. On a map of B images the
@@ -348,6 +349,10 @@ ALIGN_ROWS = (
     ("eval bs 4", (4, 37, 75, 512), 300, ("float32", "bfloat16")),
     ("ATF train", (1, 37, 75, 512), 2000, ("float32", "bfloat16")),
     ("res101 eval", (1, 38, 75, 1024), 300, ("float32",)),
+    ("res101 train (MAF, PT-MAF, MAD)", (1, 38, 75, 1024), 128,
+     ("float32",)),
+    ("res101 train target (MAF, PT-MAF)", (1, 38, 75, 1024), 300,
+     ("float32",)),
     ("US-DAF train", (1, 38, 50, 1024), 128, ("float32", "bfloat16")),
     ("US-DAF train", (1, 38, 50, 1024), 300, ("float32", "bfloat16")),
     ("train, MAD, IDF", (1, 37, 75, 512), 256, ("float32", "bfloat16")),

@@ -16,13 +16,13 @@ where JAX sums in bfloat16 (the RoIAlignAvg and RoIPool map gradients;
 the port sums in float32 and rounds once, and is the nearer to the exact
 gradient) and behind XLA's bfloat16 ``logistic`` (the instance head).
 
-Whole steps (DAF at ``vgg16_thin`` 96x128, PA-ATF at 320x320, US-DAF at
-``res14``), with JAX's draws replayed and its proposals pinned (bf16 RPN
-scores tie often and the packages' sums part by a spacing, so the keep
-lists are not held; how many differ before pinning is printed): each loss
-within 2e-2 relative of JAX's (plus 1e-3 absolute, the float32 sums of a
-loss near 0 that cancel), and the gradient of all parameters together
-within 5e-2 relative L2 error.
+Whole steps (DAF at ``vgg16_thin`` 96x128, PA-ATF at 320x320; US-DAF at
+``res14`` in ``test_torch_bf16_res14.py``), with JAX's draws replayed and
+its proposals pinned (bf16 RPN scores tie often and the packages' sums
+part by a spacing, so the keep lists are not held; how many differ before
+pinning is printed): each loss within 2e-2 relative of JAX's (plus 1e-3
+absolute, the float32 sums of a loss near 0 that cancel), and the gradient
+of all parameters together within 5e-2 relative L2 error.
 """
 
 import jax
@@ -41,7 +41,6 @@ import tllod_tpu.models.faster_rcnn as j_frcnn
 from tllod_tpu.methods import da_modules as j_da
 from tllod_tpu.methods import daf as j_daf
 from tllod_tpu.methods import pa_atf as j_pa
-from tllod_tpu.methods import us_daf as j_us
 from tllod_tpu.models import backbones as j_bb
 from tllod_tpu.models.rpn import RPNHead as JaxRPNHead
 from tllod_tpu.ops.grl import grad_reverse as j_grad_reverse
@@ -52,7 +51,6 @@ import tllod_torch.models.faster_rcnn as t_frcnn
 from tllod_torch.methods.da_modules import ImageDA, InstanceDA
 from tllod_torch.methods.daf import DAFModel, daf_loss
 from tllod_torch.methods.pa_atf import PAATFModel, pa_atf_loss
-from tllod_torch.methods.us_daf import USDAFModel, us_daf_loss
 from tllod_torch.models.backbones import Bottleneck, FrozenBN, VGG16Head
 from tllod_torch.models.layers import Conv2d, set_compute_dtype
 from tllod_torch.models.rpn import RPNHead
@@ -512,41 +510,3 @@ def test_pa_atf_bf16_step_matches_jax(monkeypatch):
     _check_bf16_step("PA-ATF", model, out, loss, j_out, j_loss, j_grads,
                      DET_KEYS + DA_KEYS + ("pm_loss",), rng, j_props,
                      differ)
-
-
-def test_us_daf_bf16_step_matches_jax(monkeypatch):
-    """US-DAF at ``res14`` in bfloat16: every FrozenBN rounding once, the
-    image and instance losses' clip and logs in bfloat16 as JAX's."""
-    from test_torch_us_daf import _res101_cfgs
-
-    cfg_j, cfg_t = _res101_cfgs(TINY)
-    src = ge._make_batch(1, 96, 128, domain=1, seed=0)
-    tgt = ge._make_batch(1, 96, 128, domain=0, seed=1)
-    j_model = j_us.USDAFModel(num_classes=16, cfg=cfg_j, net="res14",
-                              dtype=BF16)
-    params = _params_of(j_model, src, tgt, resnet=True)
-    params["img_da"]["conv2"]["kernel"] *= 0.1
-    params["ins_da"]["classifier"]["kernel"] *= 0.1
-    j_props, differ = _pin_proposals(monkeypatch)
-
-    def loss_fn(p):
-        out = j_model.apply({"params": p}, src, tgt, training=True,
-                            rngs={"sampling": jax.random.PRNGKey(5),
-                                  "dropout": jax.random.PRNGKey(6)})
-        return j_us.us_daf_loss(out, 0.1), out
-
-    j_loss, j_out, j_grads, sampling, masks = record_jax_step(
-        monkeypatch, loss_fn, params)
-    assert len(sampling) == 2 and len(masks) == 4
-    replay = replay_of(sampling[0] + sampling[1]
-                       + [mask_draws(masks[0], masks[2]),
-                          mask_draws(masks[1], masks[3])])
-    model = USDAFModel(16, cfg_t, "res14", device="cpu",
-                       dtype=torch.bfloat16)
-    load_jax_params(model, params)
-    rng = StepRandom(0, 0, "cpu", replay=replay)
-    out = model(to_torch(src), to_torch(tgt), training=True, rng=rng)
-    loss = us_daf_loss(out, 0.1)
-    loss.backward()
-    _check_bf16_step("US-DAF", model, out, loss, j_out, j_loss, j_grads,
-                     DET_KEYS + DA_KEYS, rng, j_props, differ)
